@@ -1,0 +1,100 @@
+"""The PyTorch port's package boundary and its host-side ports:
+imports, parameter packing and the camera basis."""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from voxtracer.engine import camera as jcamera
+from voxtracer.engine import params as jparams
+from voxtracer.ops import trace_pallas
+from voxtracer_torch.engine import camera as tcamera
+from voxtracer_torch.engine import params as tparams
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_port_imports_neither_jax_nor_triton():
+    """Every module of the port imports without JAX or Triton (a fresh
+    interpreter: this test process has JAX loaded by conftest)."""
+    code = (
+        "import pkgutil, sys, json, importlib, voxtracer_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages("
+        "voxtracer_torch.__path__, 'voxtracer_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'triton'))\n"
+        "print(json.dumps({'modules': names, 'bad': bad}))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120, check=True,
+    )
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "voxtracer_torch.ops.trace" in res["modules"]
+    assert "voxtracer_torch.app.cli" in res["modules"]
+    assert res["bad"] == []
+
+
+@pytest.mark.parametrize(
+    "rp",
+    [
+        tparams.RenderParams(),
+        tparams.RenderParams(
+            emit_strength=7.5, sun_strength=0.0, sun_size=0.3,
+            sun_yaw=4.1, sun_pitch=-0.7, sun_color=(0.9, 0.5, 0.2),
+            sky_color=(0.1, 0.2, 0.3), specularity=0.4,
+        ),
+    ],
+)
+def test_pack_trace_params_bit_equal(rp):
+    rng = np.random.default_rng(3)
+    cam = rng.normal(size=(4, 3)).astype(np.float32)
+    jrp = jparams.RenderParams(**dataclasses.asdict(rp))
+    want = trace_pallas.pack_params(cam, jrp)[0]
+    got = tparams.pack_trace_params(cam, rp)
+    assert got.dtype == np.float32 and got.shape == (32,)
+    assert want.tobytes() == got.tobytes()
+
+
+@pytest.mark.parametrize(
+    "name", ["RenderParams", "TemporalParams", "DenoiseParams"]
+)
+def test_params_defaults_match_reference(name):
+    ref, port = getattr(jparams, name), getattr(tparams, name)
+    assert [f.name for f in dataclasses.fields(ref)] == [
+        f.name for f in dataclasses.fields(port)
+    ]
+    assert dataclasses.asdict(ref()) == dataclasses.asdict(port())
+    assert tparams.DENOISE_RADIUS_DEFAULT == jparams.DENOISE_RADIUS_DEFAULT
+
+
+@pytest.mark.parametrize(
+    "pos, direction, fov, size",
+    [
+        ((0.0, 0.0, -2.0), (0.0, 0.0, 1.0), 70.0, (32, 32)),
+        ((36.0, 34.0, -5.0), (-16.0, -14.0, 25.0), 70.0, (1280, 720)),
+        ((1.0, 2.0, 3.0), (0.3, -0.9, 0.1), 45.0, (64, 48)),
+    ],
+)
+def test_camera_matches_reference(pos, direction, fov, size):
+    kw = dict(position=np.array(pos), direction=np.array(direction),
+              fov=np.radians(fov))
+    ref, port = jcamera.Camera(**kw), tcamera.Camera(**kw)
+    for a, b in zip(ref.axis_scaled(*size), port.axis_scaled(*size)):
+        np.testing.assert_array_equal(a, b)
+    right, up, fwd = ref.axis_scaled(*size)
+    np.testing.assert_array_equal(
+        port.rows(*size),
+        np.stack([np.asarray(pos), right, up, fwd]).astype(np.float32),
+    )
+    np.testing.assert_array_equal(
+        ref.with_yaw_pitch(0.4, -0.2).direction,
+        port.with_yaw_pitch(0.4, -0.2).direction,
+    )
