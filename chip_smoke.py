@@ -17,10 +17,27 @@ Phases (each prints one line; any failure raises and exits non-zero):
    frames timed with CUDA events; the trace launch counter must equal
    the frames rendered.  Then the same frames' trace stage and two
    whole frames with the plain trace, for comparison.
+5. temporal: the reprojection kernel against its plain version at
+   1920x1080 on monu9 G-buffers from two dolly poses and from a 10
+   degree whip pan, with kernel and plain times.
+6. denoise: the denoise kernel against its plain version at 1920x1080
+   on the dolly frame, r in {1, 2, 4, 8}, with kernel and plain times
+   per radius (the cost curve).
+7. config 4 (``BASELINE.json``): monu9 1920x1080 on the dolly path,
+   denoise r=2 — 3 warm-up frames, 3 bursts of 12 frames continuing
+   along the path so that every timed frame moves.  Launch counts:
+   trace = denoise = frames, temporal = moving frames with live
+   history.  Then each kernel against its plain version, and timed
+   alone, on the next frame's inputs and accumulated history; and 2
+   frames with every stage plain against 2 kernel frames from the same
+   state.
+8. config 3: chr_knight 1280x720 on the orbit path, r=0, the same with
+   2 bursts of 8.
 
 Prints the per-kernel JSON line, then the device line last.
 """
 
+import itertools
 import json
 import os
 import statistics
@@ -284,16 +301,273 @@ def phase_main(smi):
            f"1e-3 {int((err > 1e-3).sum())}; u8 px differing by >2 after 2 "
            f"frames {n_px} [{smi}]")
     assert n_px <= 0.005 * WIDTH * HEIGHT
-    return {
-        "name": "trace",
-        "route": "cuda",
-        "source": "voxtracer_torch/csrc/trace.cu",
-        "replaces": "voxtracer/ops/trace_pallas.py:1654",
-        "launches": launches,
-        "max_abs_err": float(err.max()),
-        "ms": k_ms,
-        "plain_ms": p_ms,
+
+
+def trace_cuda(tables, noise, cam, w, h, frame=1):
+    from voxtracer_torch.engine.params import RenderParams, pack_trace_params
+    from voxtracer_torch.ops import trace
+
+    return trace.render_sample_cuda(
+        tables, pack_trace_params(cam.rows(w, h), RenderParams()), noise,
+        frame, h, w)
+
+
+def phase_temporal(smi):
+    """Kernel vs plain at 1080p on monu9 G-buffers.  Returns the colour
+    max abs error and the dolly frame's G-buffer and kernel blend (phase
+    6's input)."""
+    from voxtracer_torch.app import camera_paths
+    from voxtracer_torch.engine.params import (
+        TemporalParams,
+        pack_temporal_params,
+    )
+    from voxtracer_torch.engine.scene import SceneTables, load_scene
+    from voxtracer_torch.ops import temporal
+    from voxtracer_torch.ops.noise import blue_noise_buffer
+
+    w, h = 1920, 1080
+    scene = load_scene("monu9")
+    tables = SceneTables(scene, "cuda")
+    noise = torch.from_numpy(blue_noise_buffer()).cuda()
+    path = camera_paths.dolly(scene)
+    # mid-path, where the dolly moves fastest
+    old_cam = path(1.0)
+    old = trace_cuda(tables, noise, old_cam, w, h)
+    rng = np.random.default_rng(0)
+    old_blend = torch.from_numpy(
+        rng.uniform(0.02, 0.9, (h, w)).astype(np.float32)).cuda()
+    max_err, dolly = 0.0, None
+    for label, cam in (("dolly", path(1.0 + 1 / 30)),
+                       ("whip pan 10 deg", old_cam.pitched(10.0))):
+        new = trace_cuda(tables, noise, cam, w, h, frame=2)
+        args = (new["color"], new["normal"], new["depth"], old["color"],
+                old_blend, old["depth"],
+                pack_temporal_params(cam.rows(w, h), old_cam.rows(w, h),
+                                     TemporalParams(), True))
+        kc, kb = temporal.temporal_blend_reproject_cuda(*args)
+        pc, pb = temporal.temporal_blend_reproject_plain(*args)
+        torch.cuda.synchronize()
+        # no transcendental: validity and next blend must be bit-exact,
+        # colour within 1e-6
+        flips = int((kb != pb).sum())
+        err = float((kc - pc).abs().max())
+        hit = new["depth"] >= 0
+        kept = float(((pb < 0.5) & hit).sum() / hit.sum().clamp_min(1))
+        k_ms = cuda_time(
+            lambda: temporal.temporal_blend_reproject_cuda(*args), 20)
+        p_ms = cuda_time(
+            lambda: temporal.temporal_blend_reproject_plain(*args), 3)
+        say(5, f"temporal {label} {w}x{h} monu9: hit fraction "
+               f"{float(hit.float().mean()):.4f}, history kept on "
+               f"{kept:.3f} of hits, next-blend mismatches {flips}, colour "
+               f"max err {err:g}; kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms "
+               f"[{smi}]")
+        assert flips == 0 and err <= 1e-6 and kept > 0.0
+        max_err = max(max_err, err)
+        dolly = dolly or (cam, new, kc)
+    return max_err, dolly
+
+
+def phase_denoise(smi, dolly):
+    """Kernel vs plain at 1080p on the dolly frame, r in {1, 2, 4, 8}.
+    Returns the max abs error."""
+    from voxtracer_torch.engine.params import DenoiseParams, pack_denoise_params
+    from voxtracer_torch.ops import denoise
+
+    cam, g, blended = dolly
+    h, w = g["depth"].shape
+    max_err = 0.0
+    for radius in (1, 2, 4, 8):
+        args = (blended, g["normal"], g["depth"], g["albedo"], g["node"],
+                pack_denoise_params(cam.rows(w, h), DenoiseParams()), radius)
+        k = denoise.denoise_cuda(*args)
+        p = denoise.denoise_plain(*args)
+        torch.cuda.synchronize()
+        # expf/logf may round differently from torch's: 1e-6 absolute
+        # plus 1e-6 relative
+        err = (k - p).abs()
+        n_far = int((err > 1e-6 + 1e-6 * p.abs()).sum())
+        finite = bool(torch.isfinite(p).all())
+        k_ms = cuda_time(lambda: denoise.denoise_cuda(*args), 10)
+        p_ms = cuda_time(lambda: denoise.denoise_plain(*args), 1)
+        say(6, f"denoise r={radius} {w}x{h}: max abs err "
+               f"{float(err.max()):g}, values beyond 1e-6 abs+rel {n_far}, "
+               f"plain finite {finite}; kernel {k_ms:.4f} ms, plain "
+               f"{p_ms:.2f} ms [{smi}]")
+        assert n_far == 0 and finite
+        max_err = max(max_err, float(err.max()))
+    return max_err
+
+
+def drive_path(phase, label, scene_name, w, h, path_name, radius, warmup,
+               bursts, frames, smi):
+    """A moving camera path through ``Renderer(device="cuda")``: warm-up
+    frames, then timed bursts continuing along the path; asserts the
+    launch counts and checks the output; then each kernel of the path
+    against its plain version on the next frame's inputs (the path's
+    accumulated history) and 2 all-plain frames against 2 kernel frames
+    from one state.  Returns (launches, kernel entries by name)."""
+    from voxtracer_torch.app import camera_paths
+    from voxtracer_torch.engine.params import (
+        pack_denoise_params,
+        pack_temporal_params,
+        pack_trace_params,
+    )
+    from voxtracer_torch.engine.pipeline import Renderer, camera_moved
+    from voxtracer_torch.engine.scene import load_scene
+    from voxtracer_torch.ops import denoise, temporal, trace
+
+    kernels = {
+        "trace": trace.render_sample_cuda,
+        "temporal": temporal.temporal_blend_reproject_cuda,
+        "denoise": denoise.denoise_cuda,
     }
+    scene = load_scene(scene_name)
+    path = camera_paths.PATHS[path_name](scene)
+    cams = (path(i / 30.0) for i in itertools.count())
+    torch.cuda.reset_peak_memory_stats()
+    r = Renderer(scene=scene, height=h, width=w, device="cuda",
+                 denoise_radius=radius, lean=True)
+    rays = torch.zeros(trace.N_PHASES, dtype=torch.int64, device="cuda")
+    moving = 0
+    out = None
+
+    def step(count_rays):
+        nonlocal moving, out
+        cam = next(cams)
+        moving += bool(r.state["history_valid"]
+                       and camera_moved(r.state, cam.rows(w, h)))
+        out = r.render(cam)
+        if count_rays:
+            rays.add_(out["rays"])
+
+    for k in kernels.values():
+        k.launches = 0
+    for _ in range(warmup):
+        step(False)
+    torch.cuda.synchronize()
+    times = [cuda_time(lambda: step(True), frames) for _ in range(bursts)]
+    launches = {name: k.launches for name, k in kernels.items()}
+    n = warmup + bursts * frames
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    assert moving == n - 1, f"{moving} moving frames of {n}"
+    want = {"trace": n, "temporal": moving, "denoise": n if radius else 0}
+    assert launches == want, f"launches {launches} != {want}"
+
+    image = out["image"].cpu().numpy()
+    depth = out["depth"].cpu().numpy()
+    blend = r.state["accum_blend"].cpu().numpy()
+    assert image.shape == (h, w, 3) and image.dtype == np.uint8
+    assert np.isfinite(r.state["accum_color"].cpu().numpy()).all()
+    hit = depth >= 0
+    hit_frac = float(hit.mean())
+    kept = float((blend[hit] < 0.5).mean()) if hit.any() else 0.0
+    std = float(image.astype(np.float32).std())
+    assert hit_frac > 0.01 and std > 1.0, (hit_frac, std)
+    assert r.frame_number == n and r.still_sample == 1
+    ms = statistics.median(times)
+    rays_per_frame = rays.sum().item() / (bursts * frames)
+    say(phase, f"{label} {w}x{h} {path_name} r={radius}, {n} frames "
+               f"({moving} moving with history), launches {launches}: burst "
+               f"ms/frame {', '.join(f'{t:.3f}' for t in times)}; median "
+               f"{ms:.3f} ms ({1000.0 / ms:.2f} fps), {rays_per_frame:.0f} "
+               f"rays/frame, {rays_per_frame / (ms * 1e-3) / 1e6:.1f} "
+               f"Mrays/s, peak {peak_mib:.0f} MiB, hit fraction "
+               f"{hit_frac:.4f}, history kept on {kept:.3f} of hits, image "
+               f"std {std:.1f} [{smi}]")
+
+    # each kernel of the path against its plain version on the next
+    # frame's inputs: the trace's G-buffer, the accumulated history, and
+    # the blend the denoise stage receives
+    cam = path(n / 30.0)
+    rows = cam.rows(w, h)
+    targs = (r.tables, pack_trace_params(rows, r.render_params), r.noise,
+             n + 1, h, w)
+    g = trace.render_sample_cuda(*targs)
+    p = trace.render_sample_plain(*targs)
+    hargs = (g["color"], g["normal"], g["depth"], r.state["accum_color"],
+             r.state["accum_blend"], r.state["old_depth"],
+             pack_temporal_params(rows, r.state["old_cam"],
+                                  r.temporal_params, True))
+    kc, kb = temporal.temporal_blend_reproject_cuda(*hargs)
+    pc, pb = temporal.temporal_blend_reproject_plain(*hargs)
+    dargs = (kc, g["normal"], g["depth"], g["albedo"], g["node"],
+             pack_denoise_params(rows, r.denoise_params), radius)
+    torch.cuda.synchronize()
+    # the bars of phases 3, 5 and 6
+    flips = int((g["node"] != p["node"]).sum())
+    cerr = (g["color"] - p["color"]).abs().amax(0)
+    assert flips == 0 and torch.equal(g["depth"], p["depth"])
+    assert int((cerr > 1e-3).sum()) <= 0.005 * w * h
+    blend_eq = torch.equal(kb, pb)
+    herr = float((kc - pc).abs().max())
+    kept_next = int(((pb < 0.5) & (g["depth"] >= 0)).sum())
+    assert blend_eq and herr <= 1e-6 and kept_next > 0, (blend_eq, herr,
+                                                         kept_next)
+    checks = (f"trace colour max err {float(cerr.max()):g}, px beyond 1e-3 "
+              f"{int((cerr > 1e-3).sum())}; temporal next blend equal "
+              f"{blend_eq}, colour max err {herr:g}, history kept on "
+              f"{kept_next} px")
+    stage = {
+        "trace": cuda_time(lambda: trace.render_sample_cuda(*targs), 10),
+        "trace plain": cuda_time(lambda: trace.render_sample_plain(*targs), 1),
+        "temporal": cuda_time(
+            lambda: temporal.temporal_blend_reproject_cuda(*hargs), 20),
+        "temporal plain": cuda_time(
+            lambda: temporal.temporal_blend_reproject_plain(*hargs), 3),
+    }
+    entries = {
+        "trace": {"max_abs_err": float(cerr.max()), "ms": stage["trace"],
+                  "plain_ms": stage["trace plain"]},
+        "temporal": {"max_abs_err": herr, "ms": stage["temporal"],
+                     "plain_ms": stage["temporal plain"]},
+    }
+    if radius:
+        kd = denoise.denoise_cuda(*dargs)
+        pd = denoise.denoise_plain(*dargs)
+        torch.cuda.synchronize()
+        derr = (kd - pd).abs()
+        n_far = int((derr > 1e-6 + 1e-6 * pd.abs()).sum())
+        assert n_far == 0 and bool(torch.isfinite(pd).all()), n_far
+        checks += (f"; denoise r={radius} max err {float(derr.max()):g}, "
+                   f"values beyond 1e-6 abs+rel {n_far}")
+        stage["denoise"] = cuda_time(lambda: denoise.denoise_cuda(*dargs), 20)
+        stage["denoise plain"] = cuda_time(
+            lambda: denoise.denoise_plain(*dargs), 1)
+        entries["denoise"] = {"max_abs_err": float(derr.max()),
+                              "ms": stage["denoise"],
+                              "plain_ms": stage["denoise plain"]}
+    say(phase, "kernels alone on the next frame's inputs: "
+               + ", ".join(f"{k} {v:.4f} ms" for k, v in stage.items())
+               + f"; {checks} [{smi}]")
+
+    # 2 frames with every stage plain, then 2 kernel frames from the
+    # same state along the same poses: their images must agree
+    state = {key: (v.clone() if torch.is_tensor(v) else v)
+             for key, v in r.state.items()}
+    n0 = r.frame_number
+    poses = [path((n + i) / 30.0) for i in range(2)]
+    r.trace = trace.render_sample_plain
+    r.temporal = temporal.temporal_blend_reproject_plain
+    if radius:
+        r.denoise = denoise.denoise_plain
+    plain_images = []
+    plain_ms = cuda_time(
+        lambda: plain_images.append(r.render(poses[len(plain_images)])
+                                    ["image"]), 2)
+    r.trace = trace.render_sample
+    r.temporal = temporal.temporal_blend_reproject
+    r.denoise = denoise.denoise
+    r.state, r.frame_number = state, n0
+    for cam in poses:
+        img_kernel = r.render(cam)["image"]
+    diff = (img_kernel.int() - plain_images[-1].int()).abs().cpu().numpy()
+    n_px = int((diff > 2).any(-1).sum())
+    say(phase, f"all-plain frame {plain_ms:.1f} ms vs kernel frame "
+               f"{ms:.3f} ms; u8 px differing by >2 after 2 frames {n_px} "
+               f"of {w * h} [{smi}]")
+    assert n_px <= 0.005 * w * h
+    return launches, entries
 
 
 def main():
@@ -301,8 +575,32 @@ def main():
     phase_build()
     phase_golden()
     phase_plain()
-    kernel = phase_main(smi)
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    phase_main(smi)
+    temporal_err, dolly = phase_temporal(smi)
+    denoise_err = phase_denoise(smi, dolly)
+    launches, entries = drive_path(7, "config 4: monu9", "monu9", 1920, 1080,
+                                   "dolly", 2, WARMUP, BURSTS, FRAMES, smi)
+    _, config3 = drive_path(8, "config 3: chr_knight", "chr_knight", 1280,
+                            720, "orbit", 0, WARMUP, 2, 8, smi)
+    # times from config 4's frame; the error is the largest of every
+    # comparison of the kernel with its plain version
+    for name, err in (("temporal", temporal_err), ("denoise", denoise_err),
+                      *((k, e["max_abs_err"]) for k, e in config3.items())):
+        entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"], err)
+    sources = {
+        "trace": ("voxtracer_torch/csrc/trace.cu",
+                  "voxtracer/ops/trace_pallas.py:1654"),
+        "temporal": ("voxtracer_torch/csrc/temporal.cu",
+                     "voxtracer/ops/temporal_pallas.py:95"),
+        "denoise": ("voxtracer_torch/csrc/denoise.cu",
+                    "voxtracer/ops/denoise_pallas.py:61"),
+    }
+    kernels = [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": launches[name], **entries[name]}
+        for name, (src, rep) in sources.items()
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,
         "device": {

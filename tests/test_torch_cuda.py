@@ -1,14 +1,18 @@
-"""The CUDA trace kernel against its plain torch version and the golden
-file.  Needs an NVIDIA GPU and nvcc; skips elsewhere.  On the card:
+"""The CUDA kernels (trace, temporal reprojection, denoise) against
+their plain torch versions and the golden file, and the Renderer on the
+card.  Needs an NVIDIA GPU and nvcc; skips elsewhere.  On the card:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 
-Tolerances: node, depth, normal and albedo bit-exact (the kernel is
-built without FMA contraction and performs the plain version's float
-operations in its order); color: cos/sin/exp/log may round differently
-in the two builds, which can turn a secondary ray at a grazing edge, so
-at most 0.5% of pixels may differ by more than 1e-3 (0 measured on an
-H100 with torch 2.11 / CUDA 12.8).
+Tolerances: trace node, depth, normal and albedo bit-exact (the kernels
+are built without FMA contraction and perform the plain versions' float
+operations in their order); trace color: cos/sin/exp/log may round
+differently in the two builds, which can turn a secondary ray at a
+grazing edge, so at most 0.5% of pixels may differ by more than 1e-3 (0
+measured on an H100 with torch 2.11 / CUDA 12.8).  Temporal: validity
+and next blend bit-exact, colour within 1e-6 (no transcendental).
+Denoise: 1e-6 absolute plus 1e-6 relative (expf/logf may round
+differently from torch's).
 """
 
 import os
@@ -17,9 +21,17 @@ import numpy as np
 import pytest
 import torch
 
+from voxtracer_torch.app import camera_paths
 from voxtracer_torch.engine import scene as scene_mod
 from voxtracer_torch.engine.camera import Camera
-from voxtracer_torch.engine.params import RenderParams, pack_trace_params
+from voxtracer_torch.engine.params import (
+    DenoiseParams,
+    RenderParams,
+    TemporalParams,
+    pack_denoise_params,
+    pack_temporal_params,
+    pack_trace_params,
+)
 from voxtracer_torch.engine.pipeline import Renderer
 from voxtracer_torch.engine.scene import (
     GridScene,
@@ -27,7 +39,7 @@ from voxtracer_torch.engine.scene import (
     VoxelList,
     load_scene,
 )
-from voxtracer_torch.ops import trace
+from voxtracer_torch.ops import denoise, temporal, trace
 from voxtracer_torch.ops.noise import blue_noise_buffer, white_noise_buffer
 
 pytestmark = pytest.mark.cuda
@@ -120,3 +132,102 @@ def test_renderer_on_cuda_runs_the_kernel(cuda):
     assert (diff > 1).mean() <= 0.005
     np.testing.assert_array_equal(out_gpu["node"].cpu().numpy(),
                                   out_cpu["node"].numpy())
+
+
+def _menger_gbuf(cam, device, w=320, h=180):
+    tables = SceneTables(load_scene("menger"), device)
+    return trace.render_sample_cuda(
+        tables, pack_trace_params(cam.rows(w, h), RenderParams()),
+        torch.from_numpy(blue_noise_buffer()).to(device), 1, h, w,
+    )
+
+
+@pytest.mark.parametrize(
+    "d_pos, tilt",
+    [((0.0, 0.0, 0.0), 0.0), ((0.3, -0.2, 0.4), 0.0),
+     ((2.0, 1.0, -1.5), 0.0), ((0.0, 0.0, 0.0), 15.0)],
+    ids=["still", "small", "large", "whip_pan"],
+)
+def test_temporal_kernel_matches_plain(cuda, d_pos, tilt):
+    """Menger G-buffers from two poses, history from the first; the
+    whip pan tilts by 15 degrees (~34 of 180 rows, past the Pallas
+    kernel's serve window)."""
+    w, h = 320, 180
+    old_cam = MENGER
+    cam = Camera(position=old_cam.position + np.array(d_pos),
+                 direction=old_cam.pitched(tilt).direction)
+    old = _menger_gbuf(old_cam, cuda, w, h)
+    new = _menger_gbuf(cam, cuda, w, h)
+    rng = np.random.default_rng(0)
+    old_blend = torch.from_numpy(
+        rng.uniform(0.02, 0.9, (h, w)).astype(np.float32)).to(cuda)
+    args = (new["color"], new["normal"], new["depth"], old["color"],
+            old_blend, old["depth"],
+            pack_temporal_params(cam.rows(w, h), old_cam.rows(w, h),
+                                 TemporalParams(), True))
+    kc, kb = temporal.temporal_blend_reproject_cuda(*args)
+    pc, pb = temporal.temporal_blend_reproject_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(kb, pb)
+    assert (pb < 0.5).any(), "degenerate comparison: no history kept"
+    assert (kc - pc).abs().max().item() <= 1e-6
+
+
+def test_temporal_kernel_non_finite_reprojection(cuda):
+    """Depth 0 at the old camera's origin and infinite depths give NaN
+    and inf screen coordinates: the kernel reads in bounds and those
+    pixels restart, as in the plain version."""
+    w, h = 64, 48
+    rows = MENGER.rows(w, h)
+    depth = torch.full((h, w), 5.0, device=cuda)
+    depth[:4] = float("inf")
+    depth[4:8] = 0.0
+    color = torch.rand((3, h, w), device=cuda)
+    normal = torch.zeros((3, h, w), device=cuda)
+    normal[2] = -1.0
+    args = (color, normal, depth, torch.rand((3, h, w), device=cuda),
+            torch.full((h, w), 0.3, device=cuda), depth.clone(),
+            pack_temporal_params(rows, rows, TemporalParams(), True))
+    kc, kb = temporal.temporal_blend_reproject_cuda(*args)
+    pc, pb = temporal.temporal_blend_reproject_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(kb, pb) and torch.equal(kc[:, :8], color[:, :8])
+    assert torch.equal(kc, pc)
+
+
+@pytest.mark.parametrize("radius", [1, 2, 4, 8])
+def test_denoise_kernel_matches_plain(cuda, radius):
+    g = _menger_gbuf(MENGER, cuda)
+    args = (g["color"], g["normal"], g["depth"], g["albedo"], g["node"],
+            pack_denoise_params(MENGER.rows(320, 180), DenoiseParams()),
+            radius)
+    k = denoise.denoise_cuda(*args)
+    p = denoise.denoise_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(p).all()
+    assert ((k - p).abs() <= 1e-6 + 1e-6 * p.abs()).all()
+
+
+def test_renderer_on_cuda_runs_every_kernel_on_a_moving_path(cuda):
+    """Four frames along an orbit at denoise radius 2: the trace and
+    denoise kernels launch every frame, the temporal kernel on the three
+    frames that move with live history; images agree with the CPU
+    renderer's."""
+    scene = load_scene("chr_knight")
+    path = camera_paths.orbit(scene, distance=0.6)
+    gpu = Renderer(scene=scene, height=48, width=64, device="cuda",
+                   denoise_radius=2)
+    cpu = Renderer(scene=scene, height=48, width=64, device="cpu",
+                   denoise_radius=2)
+    counters = (trace.render_sample_cuda, temporal.temporal_blend_reproject_cuda,
+                denoise.denoise_cuda)
+    before = [c.launches for c in counters]
+    for i in range(4):
+        out_gpu = gpu.render(path(i / 30.0))
+        out_cpu = cpu.render(path(i / 30.0))
+    assert [c.launches - b for c, b in zip(counters, before)] == [4, 3, 4]
+    np.testing.assert_array_equal(out_gpu["node"].cpu().numpy(),
+                                  out_cpu["node"].numpy())
+    diff = np.abs(out_gpu["image"].cpu().numpy().astype(int)
+                  - out_cpu["image"].numpy().astype(int))
+    assert (diff > 1).any(-1).mean() <= 0.005

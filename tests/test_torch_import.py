@@ -1,5 +1,5 @@
 """The PyTorch port's package boundary and its host-side ports:
-imports, parameter packing and the camera basis."""
+imports, parameter packing, the camera basis and the camera paths."""
 
 import dataclasses
 import json
@@ -10,11 +10,15 @@ import sys
 import numpy as np
 import pytest
 
+from voxtracer.app import camera_paths as jcamera_paths
 from voxtracer.engine import camera as jcamera
 from voxtracer.engine import params as jparams
-from voxtracer.ops import trace_pallas
+from voxtracer.ops import denoise_pallas, temporal_pallas, trace_pallas
+from voxtracer.ops.temporal import _inv3_np
+from voxtracer_torch.app import camera_paths as tcamera_paths
 from voxtracer_torch.engine import camera as tcamera
 from voxtracer_torch.engine import params as tparams
+from voxtracer_torch.engine.scene import load_scene
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -37,7 +41,8 @@ def test_port_imports_neither_jax_nor_triton():
         capture_output=True, text=True, timeout=120, check=True,
     )
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "voxtracer_torch.ops.trace" in res["modules"]
+    for name in ("trace", "temporal", "denoise", "_build"):
+        assert f"voxtracer_torch.ops.{name}" in res["modules"]
     assert "voxtracer_torch.app.cli" in res["modules"]
     assert res["bad"] == []
 
@@ -98,3 +103,57 @@ def test_camera_matches_reference(pos, direction, fov, size):
         ref.with_yaw_pitch(0.4, -0.2).direction,
         port.with_yaw_pitch(0.4, -0.2).direction,
     )
+
+
+@pytest.mark.parametrize("history_valid", [True, False])
+@pytest.mark.parametrize(
+    "tp",
+    [tparams.TemporalParams(),
+     tparams.TemporalParams(sample_blending=0.2, maximum_blending=0.9,
+                            blending_distance_cutoff=0.3)],
+    ids=["default", "custom"],
+)
+def test_pack_temporal_params_bit_equal(tp, history_valid):
+    """The host pack holds the fields of the reference's host-packed
+    temporal row (without its mesh slots); its inverse of the old basis
+    is bit-equal to ``_inv3_np``."""
+    rng = np.random.default_rng(5)
+    cam = rng.normal(size=(4, 3)).astype(np.float32)
+    old = rng.normal(size=(4, 3)).astype(np.float32)
+    got = tparams.pack_temporal_params(cam, old, tp, history_valid)
+    assert got.dtype == np.float32 and got.shape == (40,)
+    inv = _inv3_np(np.stack([old[1], old[2], old[3]], axis=1))
+    assert got[24:33].tobytes() == inv.reshape(9).tobytes()
+    want = temporal_pallas.pack_temporal_row_host(
+        cam, old, jparams.TemporalParams(**dataclasses.asdict(tp)),
+        history_valid, 48,
+    )
+    n = temporal_pallas._P_HVALID + 1
+    assert got[:n].tobytes() == want[:n].tobytes()
+    assert not got[n:].any()
+
+
+def test_pack_denoise_params_bit_equal():
+    rng = np.random.default_rng(6)
+    cam = rng.normal(size=(4, 3)).astype(np.float32)
+    dp = tparams.DenoiseParams(sigma_distance=1.3, sigma_range=0.4,
+                               albedo_factor=0.7)
+    got = tparams.pack_denoise_params(cam, dp)
+    want = denoise_pallas.pack_denoise_row_host(
+        cam, jparams.DenoiseParams(**dataclasses.asdict(dp))
+    )
+    assert got.dtype == np.float32 and got.shape == (16,)
+    # slot 15 is the reference's mesh row offset, 0 on one device
+    assert got.tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("name", ["static", "orbit", "dolly"])
+def test_camera_paths_match_reference(name):
+    scene = load_scene("chr_knight")
+    ref, port = jcamera_paths.PATHS[name](scene), tcamera_paths.PATHS[name](
+        scene)
+    for t in (0.0, 1 / 30, 0.7, 5.0):
+        a, b = ref(t), port(t)
+        np.testing.assert_array_equal(a.position, b.position)
+        np.testing.assert_array_equal(a.direction, b.direction)
+        assert a.fov == b.fov

@@ -11,7 +11,11 @@ from voxtracer.ops import denoise_pallas
 from voxtracer.ops import temporal as jtemporal
 from voxtracer.ops import tonemap as jtonemap
 from voxtracer_torch.engine.camera import Camera
-from voxtracer_torch.engine.params import DenoiseParams, TemporalParams
+from voxtracer_torch.engine.params import (
+    DenoiseParams,
+    TemporalParams,
+    pack_denoise_params,
+)
 from voxtracer_torch.ops import denoise, temporal, tonemap
 
 H, W = 24, 40
@@ -102,18 +106,15 @@ def test_radius0_modulate_matches_reference(factor):
         jparams.DenoiseParams(albedo_factor=jnp.float32(factor)), radius=0,
     )
     got = denoise.denoise(
-        torch.from_numpy(colors), torch.from_numpy(albedo), dp, radius=0
+        torch.from_numpy(colors), torch.zeros((3, H, W)),
+        torch.zeros((H, W)), torch.from_numpy(albedo),
+        torch.zeros((H, W), dtype=torch.int32),
+        pack_denoise_params(np.zeros((4, 3), np.float32), dp), radius=0,
     )
     # 1 ulp: XLA's CPU backend contracts factor * albedo + (1 - factor)
     # into an FMA; the port rounds the product first
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2.5e-7,
                                atol=0)
-
-
-def test_denoise_radius_above_zero_is_not_ported():
-    x = torch.zeros((3, 4, 4))
-    with pytest.raises(NotImplementedError, match="Queue 1 #6"):
-        denoise.denoise(x, x, DenoiseParams(), radius=2)
 
 
 def test_tonemap_matches_reference():

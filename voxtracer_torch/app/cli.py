@@ -1,13 +1,16 @@
-"""Headless render CLI of the PyTorch port: accumulate still frames and
-write the last one as a PNG.
+"""Headless render CLI of the PyTorch port: render frames along a
+camera path (or at a fixed pose) and write the last one as a PNG.
 
 Counterpart of :mod:`voxtracer.app.cli` (same flags, names and
-defaults) for the parts ported so far: a still camera with denoise
-radius 0.  Flags of the parts not ported yet exit with a message.
+defaults) for the parts ported so far: still and scripted moving
+cameras, any denoise radius.  Flags of the parts not ported yet
+(snapshots, the legacy Whitted mode) exit with a message.
 
 Examples:
   python -m voxtracer_torch.app.cli --device cuda --scene menger \\
       --size 1280x720 --frames 32 -o out.png
+  python -m voxtracer_torch.app.cli --device cuda --scene monu9 \\
+      --size 1920x1080 --path dolly --denoise-radius 2 --frames 30 -o m.png
   python -m voxtracer_torch.app.cli --device cpu --scene 8x8x8 \\
       --size 64x64 --frames 4 -o small.png
 """
@@ -42,12 +45,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--list-scenes", action="store_true")
     p.add_argument("--size", default="1280x720", help="WIDTHxHEIGHT")
     p.add_argument("--frames", type=int, default=16,
-                   help="still frames to accumulate")
+                   help="frames to render")
     p.add_argument("-o", "--output", default="frame.png",
                    help="output PNG for the final frame")
     p.add_argument("--path", default="static",
                    choices=["dolly", "orbit", "static"],
-                   help="scripted camera path (only 'static' is ported)")
+                   help="scripted camera path")
+    p.add_argument("--fps-target", type=float, default=30.0,
+                   help="camera-path playback rate (frames advance 1/fps)")
     p.add_argument("--camera-pos", default=None,
                    help="explicit camera position 'x,y,z' (overrides --path)")
     p.add_argument("--camera-dir", default=None,
@@ -82,7 +87,7 @@ def build_parser() -> argparse.ArgumentParser:
     ren_g.add_argument("--temporal-cutoff", type=float, default=1e-2,
                        help="blending distance cutoff (log scale 0..1)")
     ren_g.add_argument("--denoise-radius", type=int, default=0,
-                       help="only 0 is ported")
+                       help="0..8")
     ren_g.add_argument("--sigma-distance", type=float, default=2.0,
                        help="0.1..5")
     ren_g.add_argument("--sigma-range", type=float, default=1.5,
@@ -118,16 +123,9 @@ def make_params(args) -> RenderParams:
 
 
 def _refuse_unported(args):
-    if args.denoise_radius != 0:
-        raise SystemExit(
-            f"--denoise-radius {args.denoise_radius}: the denoise kernel is "
-            f"{NOT_PORTED} (ROADMAP Queue 1 #6); use 0"
-        )
-    if args.path != "static" and args.camera_pos is None:
-        raise SystemExit(
-            f"--path {args.path}: moving cameras need the reprojection "
-            f"kernel, {NOT_PORTED} (ROADMAP Queue 1 #5)"
-        )
+    if args.denoise_radius < 0:
+        raise SystemExit(f"--denoise-radius must be >= 0, got "
+                         f"{args.denoise_radius}")
     if args.legacy_whitted:
         raise SystemExit(f"--legacy-whitted is {NOT_PORTED} (ROADMAP Queue 1 #9)")
     if args.save_snapshot or args.resume:
@@ -146,15 +144,15 @@ def main(argv=None) -> int:
         scene = load_scene(args.scene)
     except ValueError as e:
         raise SystemExit(str(e))
+    fixed_cam = None
     if args.camera_pos is not None:
         direction = _parse_vec(args.camera_dir) if args.camera_dir else (0, 0, 1)
-        camera = Camera(
+        fixed_cam = Camera(
             position=np.array(_parse_vec(args.camera_pos)),
             direction=np.array(direction),
             fov=np.radians(args.fov),
         )
-    else:
-        camera = camera_paths.static(scene)(0.0)
+    path = camera_paths.PATHS[args.path](scene)
 
     renderer = Renderer(
         scene=scene,
@@ -180,7 +178,9 @@ def main(argv=None) -> int:
     )
     t0 = time.perf_counter()
     out = None
-    for _ in range(args.frames):
+    for i in range(args.frames):
+        camera = fixed_cam if fixed_cam is not None else path(
+            i / args.fps_target)
         out = renderer.render(camera)
     image = out["image"].cpu().numpy()  # waits for the device
     wall = time.perf_counter() - t0

@@ -64,3 +64,9 @@ class Camera:
             ]
         )
         return dataclasses.replace(self, direction=direction)
+
+    def pitched(self, degrees: float) -> "Camera":
+        """The same camera pitched up by ``degrees``."""
+        d = self.direction / np.linalg.norm(self.direction)
+        return self.with_yaw_pitch(math.atan2(d[0], d[2]),
+                                   math.asin(d[1]) + math.radians(degrees))

@@ -1,8 +1,10 @@
-"""Render parameters and the trace kernel's packed parameter vector.
+"""Render parameters and the kernels' packed parameter vectors.
 
 Counterpart of :mod:`voxtracer.engine.params`: the same three parameter
 sets with the same fields and defaults, as plain frozen dataclasses (no
-pytree registration; nothing here is traced).
+pytree registration; nothing here is traced).  Each device stage reads
+one host-packed float32 vector; its plain torch version reads the same
+one, so both see the same float32 values.
 """
 
 from __future__ import annotations
@@ -48,6 +50,17 @@ class DenoiseParams:
 
 DENOISE_RADIUS_DEFAULT = 0
 
+
+def check_params(params, n: int) -> np.ndarray:
+    """A packed parameter vector as the (n,) contiguous float32 array
+    that both implementations of a stage read; raises otherwise."""
+    params = np.ascontiguousarray(params)
+    if params.shape != (n,) or params.dtype != np.float32:
+        raise ValueError(
+            f"params must be ({n},) float32, got {params.shape} {params.dtype}"
+        )
+    return params
+
 # float32 trace-parameter layout, read by both trace implementations:
 #   0-2 cam origin | 3-5 right | 6-8 up | 9-11 forward (pixel-scaled)
 #   12 sun_yaw | 13 sun_pitch | 14 sun_size | 15 sun_strength
@@ -81,4 +94,61 @@ def pack_trace_params(cam: np.ndarray, p: RenderParams) -> np.ndarray:
     )
     out[24:27] = sd
     out[27:30] = sd / np.linalg.norm(sd)
+    return out
+
+
+# float32 temporal-parameter layout, read by both temporal
+# implementations (the fields of ``temporal_pallas.pack_temporal_row_host``
+# without its mesh slots):
+#   0-11 camera rows (origin, right, up, forward) | 12-23 old camera rows
+#   24-32 row-major inverse of the old basis columns [right up forward]
+#   33 sample_blending | 34 maximum_blending | 35 blending_distance_cutoff
+#   36 history_valid (1.0 / 0.0)
+TEMPORAL_PARAMS_LEN = 40
+
+
+def inv3(m: np.ndarray) -> np.ndarray:
+    """Adjugate 3x3 inverse in float32 numpy, the cofactor order of
+    ``voxtracer.ops.temporal._inv3_np``."""
+    m = np.asarray(m, np.float32)
+    a, b, c = m[:, 0], m[:, 1], m[:, 2]
+    r0 = np.cross(b, c)
+    r1 = np.cross(c, a)
+    r2 = np.cross(a, b)
+    det = np.dot(a, r0)
+    return (np.stack([r0, r1, r2], axis=0) / det).astype(np.float32)
+
+
+def pack_temporal_params(
+    cam: np.ndarray, old_cam: np.ndarray, p: TemporalParams,
+    history_valid: bool,
+) -> np.ndarray:
+    """Camera rows, old camera rows and TemporalParams -> (40,) float32."""
+    cam = np.asarray(cam, np.float32)
+    old = np.asarray(old_cam, np.float32)
+    out = np.zeros(TEMPORAL_PARAMS_LEN, np.float32)
+    out[0:12] = cam.reshape(12)
+    out[12:24] = old.reshape(12)
+    out[24:33] = inv3(np.stack([old[1], old[2], old[3]], axis=1)).reshape(9)
+    out[33] = p.sample_blending
+    out[34] = p.maximum_blending
+    out[35] = p.blending_distance_cutoff
+    out[36] = float(bool(history_valid))
+    return out
+
+
+# float32 denoise-parameter layout (``denoise_pallas.pack_denoise_row_host``
+# without its mesh row offset):
+#   0-11 camera rows | 12 sigma_distance | 13 sigma_range
+#   14 albedo_factor
+DENOISE_PARAMS_LEN = 16
+
+
+def pack_denoise_params(cam: np.ndarray, p: DenoiseParams) -> np.ndarray:
+    """Camera rows and DenoiseParams -> (16,) float32."""
+    out = np.zeros(DENOISE_PARAMS_LEN, np.float32)
+    out[0:12] = np.asarray(cam, np.float32).reshape(12)
+    out[12] = p.sigma_distance
+    out[13] = p.sigma_range
+    out[14] = p.albedo_factor
     return out

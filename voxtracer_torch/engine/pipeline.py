@@ -1,25 +1,27 @@
 """The frame function and the host-side frame loop.
 
-Counterpart of :mod:`voxtracer.engine.pipeline` for a camera at rest
-(BASELINE config 2, the frame ``bench.py`` measures).  Each frame runs
-four stages, planar (3, H, W) throughout:
+Counterpart of :mod:`voxtracer.engine.pipeline` on one device.  Each
+frame runs four stages, planar (3, H, W) throughout:
 
 1. trace: :func:`voxtracer_torch.ops.trace.render_sample` — the CUDA
    kernel on the card, its plain torch version on the CPU;
-2. the still-camera temporal blend;
-3. the radius-0 albedo modulate;
+2. temporal: with live history and a moved camera, the reprojecting
+   blend :func:`voxtracer_torch.ops.temporal.temporal_blend_reproject`
+   (CUDA kernel / plain version); otherwise the elementwise still blend;
+3. denoise: :func:`voxtracer_torch.ops.denoise.denoise` — the
+   cross-bilateral stencil for radius >= 1 (CUDA kernel / plain
+   version), then the albedo modulate;
 4. the u8 sRGB encode.
 
 The first frame after construction, ``reset_accumulation`` or a resize
-has no live history.  The reference package sends it through the moving
+has no live history.  The reference sends it through the moving
 camera's temporal kernel with history invalid, whose result is the
 fresh sample everywhere — exactly what the still blend computes with
-history invalid, so the port uses the still blend.  A moved camera with
-live history needs the reprojection kernel (ROADMAP Queue 1 #5) and
-raises ``NotImplementedError``; it never resets history quietly.
+history invalid, so the port uses the still blend.
 
 State: ``accum_color`` (3, H, W), ``accum_blend`` and ``old_depth``
-(H, W) live on the device; ``old_cam`` ((4, 3) float32 numpy) and
+(H, W) live on the device; ``old_cam`` ((4, 3) float32 numpy, the
+camera the history was rendered from, which the reprojection reads) and
 ``history_valid`` (bool) stay on the host, where the Renderer reads them
 without waiting for the device.
 """
@@ -43,6 +45,8 @@ from .params import (
     DenoiseParams,
     RenderParams,
     TemporalParams,
+    pack_denoise_params,
+    pack_temporal_params,
     pack_trace_params,
 )
 from .scene import GridScene, SceneTables
@@ -112,15 +116,12 @@ def render_frame(
     radius: int = 0,
     lean: bool = False,
     trace: Callable = trace_op.render_sample,
+    temporal: Callable = temporal_op.temporal_blend_reproject,
+    denoise: Callable = denoise_op.denoise,
 ):
-    """One frame: ``(state, outputs)``.  ``trace`` is the trace stage;
-    only a comparison of the kernel with its plain version replaces it."""
-    if state["history_valid"] and camera_moved(state, cam):
-        raise NotImplementedError(
-            "a moved camera with live history needs the reprojection "
-            "kernel, not ported yet (ROADMAP Queue 1 #5, Queue 2 #2); "
-            "call reset_accumulation() to restart from the new pose"
-        )
+    """One frame: ``(state, outputs)``.  ``trace``, ``temporal`` (the
+    reprojecting blend) and ``denoise`` are the device stages; only a
+    comparison of the kernels with their plain versions replaces them."""
     gbuf = trace(
         tables,
         pack_trace_params(cam, render_params),
@@ -129,19 +130,35 @@ def render_frame(
         height,
         width,
     )
-    blended, next_blend = temporal_op.temporal_blend_still_planar(
-        gbuf["color"],
+    history = (state["accum_color"], state["accum_blend"], state["old_depth"])
+    if state["history_valid"] and camera_moved(state, cam):
+        blended, next_blend = temporal(
+            gbuf["color"],
+            gbuf["normal"],
+            gbuf["depth"],
+            *history,
+            pack_temporal_params(cam, state["old_cam"], temporal_params, True),
+        )
+    else:
+        blended, next_blend = temporal_op.temporal_blend_still_planar(
+            gbuf["color"],
+            gbuf["normal"],
+            gbuf["depth"],
+            *history,
+            cam,
+            state["old_cam"],
+            temporal_params,
+            state["history_valid"],
+        )
+    out = denoise(
+        blended,
         gbuf["normal"],
         gbuf["depth"],
-        state["accum_color"],
-        state["accum_blend"],
-        state["old_depth"],
-        cam,
-        state["old_cam"],
-        temporal_params,
-        state["history_valid"],
+        gbuf["albedo"],
+        gbuf["node"],
+        pack_denoise_params(cam, denoise_params),
+        radius,
     )
-    out = denoise_op.denoise(blended, gbuf["albedo"], denoise_params, radius)
     new_state = {
         "accum_color": blended,
         "accum_blend": next_blend,
@@ -173,7 +190,9 @@ class Renderer:
     """Host-side frame loop: owns the scene tables, noise and state on
     ``device`` and advances frames (the reference's frame and
     still-sample counters, camera-motion detection, scene swap, resize).
-    ``device="cuda"`` without a usable GPU raises."""
+    ``device="cuda"`` without a usable GPU raises.  ``trace``,
+    ``temporal`` and ``denoise`` are the frame's device stages (see
+    :func:`render_frame`)."""
 
     scene: GridScene
     height: int
@@ -186,6 +205,8 @@ class Renderer:
     noise_buffer: Optional[np.ndarray] = None
     lean: bool = False
     trace: Callable = trace_op.render_sample
+    temporal: Callable = temporal_op.temporal_blend_reproject
+    denoise: Callable = denoise_op.denoise
 
     def __post_init__(self):
         self.device = torch.device(self.device)
@@ -244,6 +265,8 @@ class Renderer:
             radius=self.denoise_radius,
             lean=self.lean if lean is None else lean,
             trace=self.trace,
+            temporal=self.temporal,
+            denoise=self.denoise,
         )
         self.frame_number += 1
         self.still_sample = 1 if moved else self.still_sample + 1

@@ -21,8 +21,8 @@ import tempfile
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
-# -fmad=false: no FMA contraction, so the kernel rounds every operation
-# as the plain torch version does (no --use_fast_math either: IEEE
+# -fmad=false: no FMA contraction, so the kernels round every operation
+# as the plain torch versions do (no --use_fast_math either: IEEE
 # division and square root).
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -60,7 +60,7 @@ def library_path() -> str:
 def build() -> str:
     """Compile the sources if their library is not built yet; returns
     the library path.  ``build_log`` (next to it) keeps nvcc's output,
-    with ptxas's register and spill report."""
+    with ptxas's register and spill report for every kernel."""
     out = library_path()
     if os.path.exists(out):
         return out
@@ -104,4 +104,13 @@ def load() -> ctypes.CDLL:
     #   depth, node, rays, stream) -> cudaError_t
     lib.vt_trace_launch.argtypes = [p] * 7 + [i] * 4 + [p] * 6 + [p]
     lib.vt_trace_launch.restype = ctypes.c_int
+    # vt_temporal_launch(params, color, normal, depth, old_color,
+    #   old_blend, old_depth, height, width, blended, next_blend,
+    #   stream) -> cudaError_t
+    lib.vt_temporal_launch.argtypes = [p] * 7 + [i] * 2 + [p] * 3
+    lib.vt_temporal_launch.restype = ctypes.c_int
+    # vt_denoise_launch(params, colors, normal, depth, albedo, node,
+    #   height, width, radius, out, stream) -> cudaError_t
+    lib.vt_denoise_launch.argtypes = [p] * 6 + [i] * 3 + [p] * 2
+    lib.vt_denoise_launch.restype = ctypes.c_int
     return lib

@@ -31,6 +31,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from ..engine.params import TRACE_PARAMS_LEN, check_params
 from ..engine.scene import SceneTables
 
 MAX_BOUNCES = 3
@@ -318,11 +319,7 @@ def _node_rgb(node):
 
 
 def _check_inputs(tables, params, noise, height, width):
-    params = np.ascontiguousarray(params)
-    if params.shape != (32,) or params.dtype != np.float32:
-        raise ValueError(
-            f"params must be (32,) float32, got {params.shape} {params.dtype}"
-        )
+    params = check_params(params, TRACE_PARAMS_LEN)
     if noise.dtype != torch.float32 or noise.dim() != 3 or tuple(
         noise.shape[1:]
     ) != (NOISE_SIZE, NOISE_SIZE):
