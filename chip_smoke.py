@@ -33,10 +33,26 @@ Phases (each prints one line; any failure raises and exits non-zero):
    state.
 8. config 3: chr_knight 1280x720 on the orbit path, r=0, the same with
    2 bursts of 8.
+9. resample: the history-resample kernel against its plain version at
+   1920x1080, C=5, on phase 5's coordinates (dolly and whip pan) and on
+   a field with NaN/inf/1e30 entries: bit-equal; kernel and plain times.
+10. the channels-last ``temporal_blend`` on CUDA tensors (one resample
+    kernel launch) against the planar reprojecting body around the
+    plain resampler at 1920x1080: equal.
+11. stallbench: the stall kernel against its plain version for every
+    mode and h in {1, 2, 4}, and for pre 512 and mid 256 (the matrix's
+    longest chains), at 64 trips: equal; then the CLI's default matrix
+    at its default trips (cycles per trip, stall cycles per handoff),
+    and ser:1 against its plain version at those trips: equal.
+12. ``voxtracer_torch.app.bench.main([])``: BASELINE configs 1-6 at
+    their full sizes; every JSON line printed; a non-zero return, a
+    config's error line or a kernel never launched fails the run.
 
 Prints the per-kernel JSON line, then the device line last.
 """
 
+import contextlib
+import io
 import itertools
 import json
 import os
@@ -314,8 +330,8 @@ def trace_cuda(tables, noise, cam, w, h, frame=1):
 
 def phase_temporal(smi):
     """Kernel vs plain at 1080p on monu9 G-buffers.  Returns the colour
-    max abs error and the dolly frame's G-buffer and kernel blend (phase
-    6's input)."""
+    max abs error, the dolly frame's G-buffer and kernel blend (phase
+    6's input) and each pose's temporal arguments (phase 9's)."""
     from voxtracer_torch.app import camera_paths
     from voxtracer_torch.engine.params import (
         TemporalParams,
@@ -336,7 +352,7 @@ def phase_temporal(smi):
     rng = np.random.default_rng(0)
     old_blend = torch.from_numpy(
         rng.uniform(0.02, 0.9, (h, w)).astype(np.float32)).cuda()
-    max_err, dolly = 0.0, None
+    max_err, dolly, poses = 0.0, None, []
     for label, cam in (("dolly", path(1.0 + 1 / 30)),
                        ("whip pan 10 deg", old_cam.pitched(10.0))):
         new = trace_cuda(tables, noise, cam, w, h, frame=2)
@@ -365,7 +381,8 @@ def phase_temporal(smi):
         assert flips == 0 and err <= 1e-6 and kept > 0.0
         max_err = max(max_err, err)
         dolly = dolly or (cam, new, kc)
-    return max_err, dolly
+        poses.append((label, args, cam.rows(w, h), old_cam.rows(w, h)))
+    return max_err, dolly, poses
 
 
 def phase_denoise(smi, dolly):
@@ -570,18 +587,215 @@ def drive_path(phase, label, scene_name, w, h, path_name, radius, warmup,
     return launches, entries
 
 
+def run_captured(phase, fn, argv):
+    """``fn(argv)`` with its standard output captured; every line is
+    printed with the phase tag, also when ``fn`` raises.  Returns the
+    exit code and the JSON rows."""
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = fn(argv)
+    finally:
+        lines = out.getvalue().splitlines()
+        for ln in lines:
+            say(phase, ln)
+    return rc, [json.loads(ln) for ln in lines if ln.startswith("{")]
+
+
+def resampler_inputs(args):
+    """The history stack and source coordinates that the reprojecting
+    blend hands its resampler for these temporal arguments."""
+    from voxtracer_torch.ops import reproject, temporal
+
+    seen = {}
+
+    def grab(hist, px_f, py_f):
+        seen.update(hist=hist, px_f=px_f, py_f=py_f)
+        return reproject.resample_plain(hist, px_f, py_f)
+
+    temporal._blend_reproject(*args, grab)
+    return seen["hist"], seen["px_f"], seen["py_f"]
+
+
+def phase_resample(smi, poses):
+    """The resample kernel against its plain version at 1920x1080, C=5,
+    on phase 5's coordinates and on a field with non-finite entries.
+    Returns its kernel entry (times from the dolly field)."""
+    from voxtracer_torch.ops import reproject
+
+    fields = [(f"monu9 {label}", *resampler_inputs(args))
+              for label, args, _, _ in poses]
+    _, hist, px_f, py_f = fields[0]
+    bad_x, bad_y = px_f.clone(), py_f.clone()
+    bad_x[0, :64] = float("nan")
+    bad_y[1, :64] = float("inf")
+    bad_x[2, :64] = float("-inf")
+    bad_y[3, :64] = 1e30
+    bad_x[4, :64] = -1e30
+    fields.append(("dolly with NaN/inf/1e30 coordinates", hist, bad_x, bad_y))
+    entry = None
+    for label, hist, px_f, py_f in fields:
+        ks, kok = reproject.resample_cuda(hist, px_f, py_f)
+        ps, pok = reproject.resample_plain(hist, px_f, py_f)
+        torch.cuda.synchronize()
+        # no transcendental: bit-equal, NaN exactly where a coordinate
+        # is not finite
+        equal = torch.allclose(ks, ps, rtol=0.0, atol=0.0, equal_nan=True)
+        err = float(torch.where(ks.isnan() & ps.isnan(), 0.0,
+                                (ks - ps).abs()).max())
+        nan_px = ks.isnan().any(0)
+        finite = torch.isfinite(px_f) & torch.isfinite(py_f)
+        h, w = px_f.shape
+        inside = float(((px_f >= 0) & (px_f <= w) & (py_f >= 0)
+                        & (py_f <= h)).float().mean())
+        k_ms = cuda_time(lambda: reproject.resample_cuda(hist, px_f, py_f), 20)
+        p_ms = cuda_time(lambda: reproject.resample_plain(hist, px_f, py_f), 5)
+        say(9, f"resample {label} {w}x{h} C={hist.shape[0]}: coordinates "
+               f"inside the image {inside:.4f}, bit-equal {equal}, max abs "
+               f"err {err:g}, NaN px {int(nan_px.sum())}; kernel {k_ms:.4f} "
+               f"ms, plain {p_ms:.3f} ms [{smi}]")
+        assert equal and err == 0.0 and bool(kok.all()) and bool(pok.all())
+        assert torch.equal(nan_px, ~finite)
+        entry = entry or {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms}
+    return entry
+
+
+def phase_temporal_blend(smi, poses):
+    """The channels-last blend on CUDA tensors (which runs the resample
+    kernel) against the reprojecting body around the plain resampler at
+    1920x1080 on each pose of phase 5."""
+    from voxtracer_torch.engine.params import TemporalParams
+    from voxtracer_torch.ops import reproject, temporal
+
+    hwc = lambda a: torch.movedim(a, 0, -1)  # noqa: E731
+    for label, args, rows, old_rows in poses:
+        color, normal, depth, old_color, old_blend, old_depth, _ = args
+        blend_args = (hwc(color), hwc(normal), depth, hwc(old_color),
+                      old_blend, old_depth, rows, old_rows, TemporalParams(),
+                      True)
+
+        def blend():
+            return temporal.temporal_blend(*blend_args, reproject=True)
+
+        def plain():
+            return temporal._blend_reproject(*args, reproject.resample_plain)
+
+        before = reproject.resample_cuda.launches
+        kc, kb = blend()
+        launched = reproject.resample_cuda.launches - before
+        pc, pb = plain()
+        torch.cuda.synchronize()
+        equal = torch.equal(kc, hwc(pc)) and torch.equal(kb, pb)
+        kept = int(((pb < 0.5) & (depth >= 0)).sum())
+        k_ms = cuda_time(blend, 10)
+        p_ms = cuda_time(plain, 10)
+        h, w = depth.shape
+        say(10, f"temporal_blend channels-last {label} {w}x{h}: == the "
+                f"planar body with the plain resampler {equal}, resample "
+                f"kernel launches {launched}, history kept on {kept} px; "
+                f"with the kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms [{smi}]")
+        assert equal and launched == 1 and kept > 0
+
+
+def phase_stallbench(smi):
+    """The stall kernel against its plain version for every mode and
+    h in {1, 2, 4}, and the matrix's longest chains, at 64 trips; then
+    the default matrix through the CLI, and ser:1 against its plain
+    version at the CLI's trips.  Returns (launches of the CLI run,
+    kernel entry)."""
+    from voxtracer_torch.app import stallbench
+
+    tab, x = stallbench.make_inputs("cuda")
+    trips = 64
+    n_equal = 0
+    for mode, h, pre, mid in [(m, hh, 0, 0) for m in stallbench.MODES
+                              for hh in (1, 2, 4)] + [
+            ("ser", 2, 3, 5), ("ser", 1, 512, 0), ("ser", 1, 0, 256)]:
+        k, cycles = stallbench.run_cuda(tab, x, trips, mode, h, pre, mid)
+        p = stallbench.run_plain(tab, x, trips, mode, h, pre, mid)
+        torch.cuda.synchronize()
+        assert torch.equal(k, p), (mode, h, pre, mid)
+        assert int(cycles.item()) > 0
+        n_equal += 1
+    say(11, f"stallbench kernel == plain on {n_equal} cases at {trips} trips")
+
+    stallbench.run_cuda.launches = 0
+    rc, rows = run_captured(11, stallbench.main, ["--json"])
+    launches = stallbench.run_cuda.launches
+    assert rc == 0 and len(rows) == len(stallbench.default_cases())
+    assert launches == len(rows) * 6, launches  # warm + 5 timed each
+    assert all(r["cycles_per_trip"] > 0 for r in rows)
+    ser1 = next(r for r in rows
+                if (r["mode"], r["h"], r["pre"], r["mid"]) == ("ser", 1, 0, 0))
+    default_trips = 16384
+    plain_out = []
+    p_ms = cuda_time(lambda: plain_out.append(stallbench.run_plain(
+        tab, x, default_trips, "ser", 1, 0, 0)), 1)
+    k, _ = stallbench.run_cuda(tab, x, default_trips, "ser", 1, 0, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(k, plain_out[0]), "ser:1 at the CLI's trips"
+    summary = ", ".join(
+        f"{r['mode']}:{r['h']}:{r['pre']}:{r['mid']} {r['cycles_per_trip']}"
+        + (f" ({r['stall_cycles_per_handoff']}/handoff)"
+           if "stall_cycles_per_handoff" in r else "")
+        for r in rows)
+    say(11, f"cycles per trip (stall cycles per handoff): {summary}; ser:1 "
+            f"kernel {ser1['ms']} ms, plain {p_ms:.1f} ms at {default_trips} "
+            f"trips, kernel == plain there; launches {launches} [{smi}]")
+    return launches, {"max_abs_err": 0.0, "ms": ser1["ms"], "plain_ms": p_ms}
+
+
+def phase_harness(smi):
+    """``voxtracer_torch.app.bench.main([])``: configs 1-6 at their full
+    sizes.  Returns the launch counts of that run."""
+    from voxtracer_torch.app import bench
+    from voxtracer_torch.ops import denoise, reproject, temporal, trace
+
+    kernels = {
+        "trace": trace.render_sample_cuda,
+        "temporal": temporal.temporal_blend_reproject_cuda,
+        "denoise": denoise.denoise_cuda,
+        "resample": reproject.resample_cuda,
+    }
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    rc, rows = run_captured(12, bench.main, [])
+    seconds = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    by = {}
+    for r in rows:
+        by.setdefault(r["config"], []).append(r)
+    say(12, f"harness: rc {rc}, configs {sorted(by)}, {len(rows)} lines in "
+            f"{seconds:.1f} s, launches {launches}")
+    assert rc == 0 and sorted(by) == [1, 2, 3, 4, 5, 6]
+    assert not any("error" in r for r in rows)
+    assert all(r["device"] == smi for r in rows)
+    assert all(n > 0 for n in launches.values()), launches
+    assert by[1][0]["node_agreement"] >= 0.999, by[1]
+    assert len(by[6]) == 15 and min(r["node_agreement"] for r in by[6]) >= 0.99
+    for config in (2, 3, 4, 5):
+        r = by[config][0]
+        assert r["rays_per_frame"] > 0 and np.isfinite(r["ms_per_frame"])
+    return launches
+
+
 def main():
     smi = phase_device()
     phase_build()
     phase_golden()
     phase_plain()
     phase_main(smi)
-    temporal_err, dolly = phase_temporal(smi)
+    temporal_err, dolly, poses = phase_temporal(smi)
     denoise_err = phase_denoise(smi, dolly)
     launches, entries = drive_path(7, "config 4: monu9", "monu9", 1920, 1080,
                                    "dolly", 2, WARMUP, BURSTS, FRAMES, smi)
     _, config3 = drive_path(8, "config 3: chr_knight", "chr_knight", 1280,
                             720, "orbit", 0, WARMUP, 2, 8, smi)
+    entries["resample"] = phase_resample(smi, poses)
+    phase_temporal_blend(smi, poses)
+    launches["stall"], entries["stall"] = phase_stallbench(smi)
+    launches["resample"] = phase_harness(smi)["resample"]
     # times from config 4's frame; the error is the largest of every
     # comparison of the kernel with its plain version
     for name, err in (("temporal", temporal_err), ("denoise", denoise_err),
@@ -594,6 +808,10 @@ def main():
                      "voxtracer/ops/temporal_pallas.py:95"),
         "denoise": ("voxtracer_torch/csrc/denoise.cu",
                     "voxtracer/ops/denoise_pallas.py:61"),
+        "resample": ("voxtracer_torch/csrc/reproject.cu",
+                     "voxtracer/ops/reproject_pallas.py:79"),
+        "stall": ("voxtracer_torch/csrc/stallbench.cu",
+                  "voxtracer/app/stallbench.py:65"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -1,5 +1,6 @@
-"""The CUDA kernels (trace, temporal reprojection, denoise) against
-their plain torch versions and the golden file, and the Renderer on the
+"""The CUDA kernels (trace, temporal reprojection, denoise, history
+resample, stall microbenchmark) against their plain torch versions and
+the golden file, and the Renderer and the BASELINE harness on the
 card.  Needs an NVIDIA GPU and nvcc; skips elsewhere.  On the card:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -12,7 +13,9 @@ grazing edge, so at most 0.5% of pixels may differ by more than 1e-3 (0
 measured on an H100 with torch 2.11 / CUDA 12.8).  Temporal: validity
 and next blend bit-exact, colour within 1e-6 (no transcendental).
 Denoise: 1e-6 absolute plus 1e-6 relative (expf/logf may round
-differently from torch's).
+differently from torch's).  Resample: bit-equal, NaN where a coordinate
+is not finite (no transcendental).  Stall microbenchmark: integer,
+equal.
 """
 
 import os
@@ -21,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from voxtracer_torch.app import camera_paths
+from voxtracer_torch.app import bench, camera_paths, stallbench
 from voxtracer_torch.engine import scene as scene_mod
 from voxtracer_torch.engine.camera import Camera
 from voxtracer_torch.engine.params import (
@@ -39,7 +42,7 @@ from voxtracer_torch.engine.scene import (
     VoxelList,
     load_scene,
 )
-from voxtracer_torch.ops import denoise, temporal, trace
+from voxtracer_torch.ops import denoise, reproject, temporal, trace
 from voxtracer_torch.ops.noise import blue_noise_buffer, white_noise_buffer
 
 pytestmark = pytest.mark.cuda
@@ -231,3 +234,86 @@ def test_renderer_on_cuda_runs_every_kernel_on_a_moving_path(cuda):
     diff = np.abs(out_gpu["image"].cpu().numpy().astype(int)
                   - out_cpu["image"].numpy().astype(int))
     assert (diff > 1).any(-1).mean() <= 0.005
+
+
+def _resample_field(h, w, shift, device):
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32),
+                            torch.arange(w, dtype=torch.float32),
+                            indexing="ij")
+    px_f = (xx + shift + 0.3 + 0.01 * yy).to(device)
+    py_f = (yy - 1.7 + 0.005 * xx).to(device)
+    return px_f, py_f
+
+
+@pytest.mark.parametrize("shift", [2.0, 500.0, -90.0],
+                         ids=["smooth", "far_right", "far_left"])
+@pytest.mark.parametrize("channels", [1, 5])
+def test_resample_kernel_matches_plain(cuda, shift, channels):
+    """Bit-equal to the plain version, off-image coordinates and NaN /
+    inf coordinates included (NaN where a coordinate is not finite)."""
+    h, w = 96, 200
+    hist = torch.rand((channels, h, w), device=cuda)
+    px_f, py_f = _resample_field(h, w, shift, cuda)
+    px_f[0, :8] = float("nan")
+    py_f[1, :8] = float("inf")
+    px_f[2, :8] = float("-inf")
+    py_f[3, :8] = 1e30
+    ks, kok = reproject.resample_cuda(hist, px_f, py_f)
+    ps, pok = reproject.resample_plain(hist, px_f, py_f)
+    torch.cuda.synchronize()
+    assert kok.all() and pok.all()
+    assert torch.equal(ks.isnan(), ps.isnan()) and ks[:, :3, :8].isnan().all()
+    assert torch.allclose(ks, ps, rtol=0.0, atol=0.0, equal_nan=True)
+
+
+@pytest.mark.parametrize("d_pos", [(0.3, -0.2, 0.4), (2.0, 1.0, -1.5)],
+                         ids=["small", "large"])
+def test_temporal_blend_cuda_resampler_equals_plain(cuda, d_pos):
+    """The channels-last blend on CUDA tensors runs the resample kernel
+    and equals the reprojecting body around the plain resampler, on
+    menger G-buffers from two poses."""
+    w, h = 320, 180
+    cam = Camera(position=MENGER.position + np.array(d_pos),
+                 direction=MENGER.direction)
+    old, new = _menger_gbuf(MENGER, cuda, w, h), _menger_gbuf(cam, cuda, w, h)
+    hwc = lambda a: torch.movedim(a, 0, -1)  # noqa: E731
+    args = (hwc(new["color"]), hwc(new["normal"]), new["depth"],
+            hwc(old["color"]), torch.full((h, w), 0.3, device=cuda),
+            old["depth"], cam.rows(w, h), MENGER.rows(w, h),
+            TemporalParams(), True)
+    before = reproject.resample_cuda.launches
+    kc, kb = temporal.temporal_blend(*args, reproject=True)
+    pc, pb = temporal._blend_reproject(
+        new["color"], new["normal"], new["depth"], old["color"], args[4],
+        old["depth"], pack_temporal_params(*args[6:]),
+        reproject.resample_plain)
+    torch.cuda.synchronize()
+    assert reproject.resample_cuda.launches == before + 1
+    assert (pb < 0.5).any(), "degenerate comparison: no history kept"
+    assert torch.equal(kc, torch.movedim(pc, 0, -1)) and torch.equal(kb, pb)
+
+
+@pytest.mark.parametrize(
+    "case", ["static:1", "static:2:0:2", "ser:1", "ser:2:0:3", "ser:4:2:1",
+             "ind:2", "ind:4:1:2", "ser:1:512", "ser:1:0:256"])
+def test_stallbench_kernel_matches_plain(cuda, case):
+    mode, h, pre, mid = stallbench.parse_case(case)
+    tab, x = stallbench.make_inputs(cuda)
+    out, cycles = stallbench.run_cuda(tab, x, 16, mode, h, pre, mid)
+    want = stallbench.run_plain(tab, x, 16, mode, h, pre, mid)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert int(cycles.item()) > 0
+
+
+def test_harness_config4_runs_the_resample_kernel(cuda, monkeypatch, capsys):
+    """Config 4 of the BASELINE harness, shrunk, times the channels-last
+    blend with the resample kernel."""
+    monkeypatch.setattr(bench, "SIZES",
+                        {**bench.SIZES, 4: {"hw": (90, 160), "frames": 2}})
+    before = reproject.resample_cuda.launches
+    assert bench.main(["--only", "4"]) == 0
+    assert reproject.resample_cuda.launches - before == 6  # warm + 5 timed
+    (line,) = [ln for ln in capsys.readouterr().out.splitlines()
+               if ln.startswith("{")]
+    assert "temporal_reproject" in line and "error" not in line

@@ -41,9 +41,10 @@ def test_port_imports_neither_jax_nor_triton():
         capture_output=True, text=True, timeout=120, check=True,
     )
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    for name in ("trace", "temporal", "denoise", "_build"):
+    for name in ("trace", "temporal", "denoise", "reproject", "_build"):
         assert f"voxtracer_torch.ops.{name}" in res["modules"]
-    assert "voxtracer_torch.app.cli" in res["modules"]
+    for name in ("cli", "bench", "phasestats", "stallbench"):
+        assert f"voxtracer_torch.app.{name}" in res["modules"]
     assert res["bad"] == []
 
 

@@ -113,4 +113,12 @@ def load() -> ctypes.CDLL:
     #   height, width, radius, out, stream) -> cudaError_t
     lib.vt_denoise_launch.argtypes = [p] * 6 + [i] * 3 + [p] * 2
     lib.vt_denoise_launch.restype = ctypes.c_int
+    # vt_resample_launch(hist, px_f, py_f, channels, height, width,
+    #   sampled, ok, stream) -> cudaError_t
+    lib.vt_resample_launch.argtypes = [p] * 3 + [i] * 3 + [p] * 3
+    lib.vt_resample_launch.restype = ctypes.c_int
+    # vt_stall_launch(tab, x, trips, mode, h, pre, mid, out, cycles,
+    #   stream) -> cudaError_t
+    lib.vt_stall_launch.argtypes = [p] * 2 + [i] * 5 + [p] * 3
+    lib.vt_stall_launch.restype = ctypes.c_int
     return lib

@@ -9,10 +9,10 @@ blend of a moved camera.
   ``voxtracer.ops.temporal.temporal_blend`` with ``reproject=True,
   resample_impl="xla"`` (the any-offset path): each first-hit point is
   reprojected into the old camera through the inverse old pixel basis,
-  the 5-plane history (rgb, blend, depth) is resampled bilinearly with
-  clamp-to-edge, tested by world distance, and blended.  Planar
-  (3, H, W), in the reference's operation order.  The CPU path and the
-  reference for the kernel.
+  the 5-plane history (rgb, blend, depth) is fetched by the shared
+  resampler :func:`voxtracer_torch.ops.reproject.resample_plain`, tested
+  by world distance, and blended.  Planar (3, H, W), in the reference's
+  operation order.  The CPU path and the reference for the kernel.
 * :func:`temporal_blend_reproject_cuda` — the hand-written kernel
   ``csrc/temporal.cu``, which replaces the Pallas kernel
   ``temporal_pallas.temporal_blend_fused``.  It gathers history at any
@@ -21,6 +21,14 @@ blend of a moved camera.
   so the port's semantics are the any-offset path's, equal to the fused
   kernel's wherever its window serves.
 * :func:`temporal_blend_reproject` — picks one of the two by device.
+* :func:`temporal_blend` — counterpart of the channels-last
+  ``voxtracer.ops.temporal.temporal_blend``: a layout wrapper that runs
+  the still blend, or the reprojecting body of
+  :func:`temporal_blend_reproject_plain` around the shared resampler
+  :func:`voxtracer_torch.ops.reproject.resample`, which picks by device:
+  the plain version on the CPU, the kernel ``csrc/reproject.cu`` (which
+  replaces ``reproject_pallas.resample``) on CUDA.  The BASELINE harness
+  (``app/bench.py``) times it; the renderer's frames do not run it.
 
 The reprojecting functions read the (40,) vector of
 ``engine.params.pack_temporal_params``, whose inverse the host computes.
@@ -28,10 +36,18 @@ The reprojecting functions read the (40,) vector of
 
 from __future__ import annotations
 
+from typing import Callable
+
 import numpy as np
 import torch
 
-from ..engine.params import TEMPORAL_PARAMS_LEN, check_params
+from ..engine.params import (
+    TEMPORAL_PARAMS_LEN,
+    TemporalParams,
+    check_params,
+    pack_temporal_params,
+)
+from .reproject import resample, resample_plain
 from .trace import _div, _max0, _norm_div3, as_f32, sqrt_f32
 
 
@@ -121,7 +137,7 @@ def _check_planes(sampled_color, normal, depth, old_color, old_blend,
             raise ValueError(f"{name} on {t.device}, depth on {depth.device}")
 
 
-def temporal_blend_reproject_plain(
+def _blend_reproject(
     sampled_color: torch.Tensor,  # (3, H, W) current trace output
     normal: torch.Tensor,  # (3, H, W) current first-hit normals
     depth: torch.Tensor,  # (H, W) current first-hit depth
@@ -129,8 +145,10 @@ def temporal_blend_reproject_plain(
     old_blend: torch.Tensor,  # (H, W) history blending (alpha)
     old_depth: torch.Tensor,  # (H, W) history depth
     params: np.ndarray,  # (40,) f32, engine.params.pack_temporal_params
+    resample: Callable,  # an ops.reproject resampler
 ):
-    """Returns ``(blended (3, H, W), next_blending (H, W))``."""
+    """The reprojecting blend in plain torch ops around ``resample``.
+    Returns ``(blended (3, H, W), next_blending (H, W))``."""
     _check_planes(sampled_color, normal, depth, old_color, old_blend,
                   old_depth)
     # exact float32 values
@@ -161,32 +179,11 @@ def temporal_blend_reproject_plain(
     tex_y = _div(sy - 0.5, float(-height))
     in_range = (tex_x >= 0) & (tex_x <= 1) & (tex_y >= 0) & (tex_y <= 1)
 
-    # bilinear 4-tap fetch of the 5 history planes at pixel centers,
-    # clamp-to-edge (temporal._bilinear).  Off-screen or non-finite
-    # coordinates clamp to some edge pixel: those pixels are never
-    # valid, so what they fetch is never used.
-    xf = tex_x * width - 0.5
-    yf = tex_y * height - 0.5
-    x0 = torch.floor(xf)
-    y0 = torch.floor(yf)
-    tx = xf - x0
-    ty = yf - y0
-    hist = torch.cat([old_color, old_blend[None], old_depth[None]]).reshape(
-        5, height * width
-    )
-
-    def fetch(xi, yi):
-        xi = torch.clamp(xi.to(torch.int32), 0, width - 1)
-        yi = torch.clamp(yi.to(torch.int32), 0, height - 1)
-        return hist[:, (yi * width + xi).long()]
-
-    c00 = fetch(x0, y0)
-    c10 = fetch(x0 + 1, y0)
-    c01 = fetch(x0, y0 + 1)
-    c11 = fetch(x0 + 1, y0 + 1)
-    top = c00 * (1 - tx) + c10 * tx
-    bot = c01 * (1 - tx) + c11 * tx
-    hist5 = top * (1 - ty) + bot * ty
+    # the 5 history planes (rgb, blend, depth) at the old screen point;
+    # the resampler's coverage mask narrows the in-range test
+    hist = torch.cat([old_color, old_blend[None], old_depth[None]])
+    hist5, ok = resample(hist, tex_x * width, tex_y * height)
+    in_range = in_range & ok
 
     # the old ray quantizes to the pixel lattice (temporal.comp:99-103)
     qx = torch.trunc(sx + 0.5)
@@ -222,6 +219,21 @@ def temporal_blend_reproject_plain(
         1.0,
     )
     return blended, next_blending
+
+
+def temporal_blend_reproject_plain(
+    sampled_color: torch.Tensor,  # (3, H, W) current trace output
+    normal: torch.Tensor,  # (3, H, W) current first-hit normals
+    depth: torch.Tensor,  # (H, W) current first-hit depth
+    old_color: torch.Tensor,  # (3, H, W) history color
+    old_blend: torch.Tensor,  # (H, W) history blending (alpha)
+    old_depth: torch.Tensor,  # (H, W) history depth
+    params: np.ndarray,  # (40,) f32, engine.params.pack_temporal_params
+):
+    """Returns ``(blended (3, H, W), next_blending (H, W))``."""
+    return _blend_reproject(sampled_color, normal, depth, old_color,
+                            old_blend, old_depth, params,
+                            resample_plain)
 
 
 def temporal_blend_reproject_cuda(
@@ -290,3 +302,39 @@ def temporal_blend_reproject(
     if kind == "cuda":
         return temporal_blend_reproject_cuda(*args)
     raise ValueError(f"no temporal implementation for device {depth.device}")
+
+
+def temporal_blend(
+    sampled_color: torch.Tensor,  # (H, W, 3) current trace output
+    normal: torch.Tensor,  # (H, W, 3) current first-hit normals
+    depth: torch.Tensor,  # (H, W) current first-hit depth
+    old_color: torch.Tensor,  # (H, W, 3) history color
+    old_blend: torch.Tensor,  # (H, W) history blending (alpha)
+    old_depth: torch.Tensor,  # (H, W) history depth
+    cam: np.ndarray,  # (4, 3) f32: origin, right, up, forward (scaled)
+    old_cam: np.ndarray,  # (4, 3) f32
+    params: TemporalParams,
+    history_valid: bool,
+    reproject: bool,
+):
+    """Channels-last layout wrapper of the planar blends, the counterpart
+    of ``voxtracer.ops.temporal.temporal_blend``.  ``reproject=False`` is
+    the still blend; ``reproject=True`` the reprojecting blend around
+    :func:`voxtracer_torch.ops.reproject.resample`, which takes the
+    tensors' device: the plain resampler on the CPU (the reference's
+    ``"xla"``), the kernel on CUDA (its ``"pallas"``).  Returns
+    ``(blended (H, W, 3), next_blending (H, W))``."""
+    planar = [torch.movedim(t, -1, 0)
+              for t in (sampled_color, normal, old_color)]
+    if reproject:
+        blended, next_blending = _blend_reproject(
+            planar[0], planar[1], depth, planar[2], old_blend, old_depth,
+            pack_temporal_params(cam, old_cam, params, history_valid),
+            resample,
+        )
+    else:
+        blended, next_blending = temporal_blend_still_planar(
+            planar[0], planar[1], depth, planar[2], old_blend, old_depth,
+            cam, old_cam, params, history_valid,
+        )
+    return torch.movedim(blended, 0, -1), next_blending
