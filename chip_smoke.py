@@ -4,19 +4,27 @@
 
 Phases (each prints one line; any failure raises and exits non-zero):
 
-0. device: requires CUDA; prints torch / CUDA versions and the card's
-   name and power limit from nvidia-smi.
-1. build: compiles voxtracer_torch/csrc/*.cu with nvcc (sm_90a).
+0. device: requires CUDA; prints torch / CUDA versions, the card's
+   name and power limit from nvidia-smi, and whether the native
+   scene-build library loaded.
+1. build: compiles voxtracer_torch/csrc/*.cu with nvcc (sm_90a); the
+   trace kernel's registers, spills, shared bytes and resident warps
+   per SM.
 2. golden: the trace kernel against tests/golden/oracle_8x8x8_32.npz
    (the numpy oracle's pinned output) at the parity bar.
 3. plain: the trace kernel against its plain torch version, both on the
-   card, on three scenes (single voxel; menger 320x180 with the bench
-   camera; menger with per-node brick tables).
+   card, on four cases (single voxel; menger 320x180 with the bench
+   camera; menger with per-node brick tables; menger 333x187):
+   G-buffer bit-equal, rays and steps of phases b0, s0, b1 equal.
 4. main path: ``Renderer(device="cuda")`` on menger at 1280x720 with the
    bench camera (``bench.py``): 3 warm-up frames, 3 bursts of 12 still
    frames timed with CUDA events; the trace launch counter must equal
    the frames rendered.  Then the same frames' trace stage and two
-   whole frames with the plain trace, for comparison.
+   whole frames with the plain trace, for comparison.  Then the trace
+   kernel alone (``voxtracer_torch.app.tracebench``) on menger
+   1280x720, monu9 1920x1080 (dolly, t=0) and castle 3840x2160
+   (static): its time, the steps per phase, the SIMT efficiency
+   steps / (32 x slots) and the share of its bound.
 5. temporal: the reprojection kernel against its plain version at
    1920x1080 on monu9 G-buffers from two dolly poses and from a 10
    degree whip pan, with kernel and plain times.
@@ -48,7 +56,20 @@ Phases (each prints one line; any failure raises and exits non-zero):
     their full sizes; every JSON line printed; a non-zero return, a
     config's error line or a kernel never launched fails the run.
 
-Prints the per-kernel JSON line, then the device line last.
+Then checks that no module of the JAX package (``voxtracer``), JAX or
+Triton was imported, prints the per-kernel JSON line (each kernel's
+launches, error, times, bound, launches per frame of each config that
+ran it, and the time of one PyTorch call computing the same function,
+where there is one), then the device line last.
+
+Bounds (``bound_ms``): the larger of the bytes the function must move
+(each input read once, each output written once) over 3.35 TB/s and
+its operations over the card's peak for their type: float32 operations
+over 67 TFLOP/s, or, for the integer and control work of the trace and
+stall kernels, lane operations over the issue rate, 33.5 T a second
+(132 SMs x 4 schedulers x 32 lanes x 1.98 GHz).  The trace's operations
+are counted from the function's definition over this run's counted
+steps and rays (``voxtracer_torch.app.tracebench``).
 """
 
 import contextlib
@@ -67,10 +88,22 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
+from voxtracer_torch.app import tracebench  # noqa: E402
+from voxtracer_torch.app.tracebench import LANE_OPS_PER_S, bound  # noqa: E402
+
 WIDTH, HEIGHT = 1280, 720
 WARMUP, BURSTS, FRAMES = 3, 3, 12
-BENCH_POS = (36.0, 34.0, -5.0)  # bench.py's frame-filling menger view
-BENCH_DIR = (-16.0, -14.0, 25.0)
+BENCH_POS, BENCH_DIR = tracebench.BENCH_POS, tracebench.BENCH_DIR
+
+FP32_FLOPS_PER_S = 67e12  # H100 SXM, NVIDIA's data sheet, at 700 W
+# float32 operations of the denoise kernel (csrc/denoise.cu): per tap
+# of the stencil and per pixel around it; of the temporal kernel
+# (csrc/temporal.cu) per pixel; of the resample kernel per pixel and
+# plane.
+DENOISE_FLOPS_PER_TAP = 39
+DENOISE_FLOPS_PER_PX = 45
+TEMPORAL_FLOPS_PER_PX = 200
+RESAMPLE_FLOPS_PER_PX_PLANE = 9
 
 
 def say(phase, msg):
@@ -96,15 +129,18 @@ def phase_device():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    from voxtracer_torch import native
+
     say(0, f"torch {torch.__version__} cuda {torch.version.cuda} "
            f"python {sys.version.split()[0]} devices "
-           f"{torch.cuda.device_count()}")
+           f"{torch.cuda.device_count()}; native scene-build library "
+           f"loaded {native.loaded()}")
     print(smi, flush=True)
     return smi
 
 
 def phase_build():
-    from voxtracer_torch.ops import _build
+    from voxtracer_torch.ops import _build, trace
 
     t0 = time.perf_counter()
     _build.load()
@@ -113,6 +149,14 @@ def phase_build():
              if "registers" in ln or "spill" in ln]
     say(1, f"built {os.path.basename(_build.library_path())} in {dt:.2f} s; "
            + " | ".join(ptxas))
+    info = trace.kernel_info()
+    say(1, f"trace kernel: {info['registers']} registers, "
+           f"{info['spill_bytes']} spill bytes a thread "
+           f"({info['local_bytes']} bytes of local memory, the accurate "
+           f"cosf/sinf's stack frame), {info['shared_bytes']} shared bytes "
+           f"a block, {info['blocks_per_sm']} blocks = "
+           f"{info['warps_per_sm']} warps resident per SM")
+    assert info["spill_bytes"] == 0 and info["warps_per_sm"] >= 24, info
 
 
 def phase_golden():
@@ -167,15 +211,15 @@ def compare_kernel_plain(label, tables, cam, w, h, noise):
     from voxtracer_torch.ops import trace
 
     params = pack_trace_params(cam.rows(w, h), RenderParams())
-    k = gbuf_np(trace.render_sample_cuda(tables, params, noise, 1, h, w))
     p = gbuf_np(trace.render_sample_plain(tables, params, noise, 1, h, w))
+    k = gbuf_np(trace.render_sample_cuda(tables, params, noise, 1, h, w))
     torch.cuda.synchronize()
     # Primary geometry uses no transcendental, so node, depth, normal
-    # and albedo must be bit-exact, and so must the ray counts of the
-    # phases before the first hemisphere sample (b0, s0, b1).  Color:
-    # cos/sin/exp/log may round differently in the two builds, which can
-    # turn a secondary ray at a grazing edge; at most 0.5% of the pixels
-    # may differ by more than 1e-3.
+    # and albedo must be bit-exact, and so must the ray and step counts
+    # of the phases before the first hemisphere sample (b0, s0, b1).
+    # Color: cos/sin/exp/log may round differently in the two builds,
+    # which can turn a secondary ray at a grazing edge; at most 0.5% of
+    # the pixels may differ by more than 1e-3.
     flips = int((k["node"] != p["node"]).sum())
     depth_err = float(np.abs(k["depth"] - p["depth"]).max())
     normal_eq = bool((k["normal"] == p["normal"]).all())
@@ -183,45 +227,51 @@ def compare_kernel_plain(label, tables, cam, w, h, noise):
     err = np.abs(k["color"] - p["color"]).max(-1)
     n_far = int((err > 1e-3).sum())
     hits = float((p["depth"] >= 0).mean())
+    eff = k["steps"].sum() / (32 * k["slots"][0])
     say(3, f"{label} {w}x{h}: hit fraction {hits:.3f}, node flips {flips}, "
-           f"depth max err {depth_err:g}, normals equal {normal_eq}, "
-           f"albedo equal {albedo_eq}, color max err {err.max():g}, px "
-           f"beyond 1e-3 {n_far}, rays kernel {k['rays'].tolist()} plain "
-           f"{p['rays'].tolist()}")
+           f"depth max err {depth_err:g}, normals equal {normal_eq}, albedo "
+           f"equal {albedo_eq}, color max err {err.max():g}, px beyond 1e-3 "
+           f"{n_far}, rays kernel {k['rays'].tolist()} plain "
+           f"{p['rays'].tolist()}, steps kernel {k['steps'].tolist()} plain "
+           f"{p['steps'].tolist()}, SIMT efficiency {eff:.3f}")
     assert hits > 0.0, "degenerate comparison: no hits"
     assert flips == 0 and depth_err == 0.0 and normal_eq and albedo_eq
     assert (k["rays"][:3] == p["rays"][:3]).all()
+    assert (k["steps"][:3] == p["steps"][:3]).all()
+    assert 0 < k["steps"].sum() <= 32 * k["slots"][0]
     assert n_far <= 0.005 * w * h
     return float(err.max())
 
 
 def phase_plain():
-    from voxtracer_torch.engine import scene as scene_mod
     from voxtracer_torch.engine.camera import Camera
     from voxtracer_torch.engine.scene import SceneTables, load_scene
     from voxtracer_torch.ops.noise import blue_noise_buffer
+    from voxtracer_torch.scene import grid
 
     noise = torch.from_numpy(blue_noise_buffer()).cuda()
-    compare_kernel_plain(
+    err = compare_kernel_plain(
         "single voxel", SceneTables(single_voxel_scene(), "cuda"),
         Camera(position=np.array([0.3, 0.2, -1.5])), 32, 32, noise)
     bench_cam = Camera(position=np.array(BENCH_POS),
                        direction=np.array(BENCH_DIR))
-    compare_kernel_plain("menger dedup bricks",
-                         SceneTables(load_scene("menger"), "cuda"),
-                         bench_cam, 320, 180, noise)
+    menger = SceneTables(load_scene("menger"), "cuda")
+    err = max(err, compare_kernel_plain("menger dedup bricks", menger,
+                                        bench_cam, 320, 180, noise))
+    # a size that is no multiple of the kernel's 16x16 block
+    err = max(err, compare_kernel_plain("menger dedup bricks", menger,
+                                        bench_cam, 333, 187, noise))
     # forcing the dedup threshold to 0 builds per-node (2, rows, 128)
     # brick tables for the same scene
-    grid_mod = scene_mod.grid
-    saved = grid_mod.BRICK_DEDUP_MAX
-    grid_mod.BRICK_DEDUP_MAX = 0
+    saved = grid.BRICK_DEDUP_MAX
+    grid.BRICK_DEDUP_MAX = 0
     try:
         tables = SceneTables(load_scene("menger"), "cuda")
     finally:
-        grid_mod.BRICK_DEDUP_MAX = saved
+        grid.BRICK_DEDUP_MAX = saved
     assert not tables.brick_dedup
-    compare_kernel_plain("menger per-node bricks", tables, bench_cam,
-                         320, 180, noise)
+    return max(err, compare_kernel_plain("menger per-node bricks", tables,
+                                         bench_cam, 320, 180, noise))
 
 
 def cuda_time(fn, n):
@@ -248,7 +298,9 @@ def phase_main(smi):
     r = Renderer(scene=load_scene("menger"), height=HEIGHT, width=WIDTH,
                  device="cuda", lean=True)
 
-    trace.render_sample_cuda.launches = 0
+    kernels = frame_kernels()
+    for k in kernels.values():
+        k.launches = 0
     rays = torch.zeros(trace.N_PHASES, dtype=torch.int64, device="cuda")
     for _ in range(WARMUP):
         out = r.render(cam)
@@ -260,9 +312,11 @@ def phase_main(smi):
             out = r.render(cam)
             rays.add_(out["rays"])
         bursts.append(cuda_time(burst, FRAMES))
-    launches = trace.render_sample_cuda.launches
+    counts = {name: k.launches for name, k in kernels.items()}
+    launches = counts["trace"]
     frames = WARMUP + BURSTS * FRAMES
-    assert launches == frames, f"trace launches {launches} != frames {frames}"
+    assert counts == {"trace": frames, "temporal": 0, "denoise": 0,
+                      "resample": 0}, counts
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
 
     image = out["image"].cpu().numpy()
@@ -295,6 +349,8 @@ def phase_main(smi):
     err = np.abs(k["color"] - p["color"]).max(-1)
     assert flips == 0 and (k["depth"] == p["depth"]).all()
     assert (err > 1e-3).sum() <= 0.005 * WIDTH * HEIGHT
+    assert (k["rays"][:3] == p["rays"][:3]).all()
+    assert (k["steps"][:3] == p["steps"][:3]).all(), (k["steps"], p["steps"])
 
     # two whole frames with the plain trace, then two kernel frames from
     # the same state: their images must agree
@@ -317,6 +373,48 @@ def phase_main(smi):
            f"1e-3 {int((err > 1e-3).sum())}; u8 px differing by >2 after 2 "
            f"frames {n_px} [{smi}]")
     assert n_px <= 0.005 * WIDTH * HEIGHT
+    bound_ms, bound_by = tracebench.trace_bound(r.tables, k, HEIGHT, WIDTH,
+                                                r.noise.shape[0])
+    entry = {"max_abs_err": float(err.max()), "ms": k_ms, "plain_ms": p_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by}
+    return entry, counts
+
+
+def frame_kernels():
+    """The launch-counting wrappers of the frame's kernels, by name."""
+    from voxtracer_torch.ops import denoise, reproject, temporal, trace
+
+    return {
+        "trace": trace.render_sample_cuda,
+        "temporal": temporal.temporal_blend_reproject_cuda,
+        "denoise": denoise.denoise_cuda,
+        "resample": reproject.resample_cuda,
+    }
+
+
+def denoise_bound(h, w, radius):
+    """(bound_ms, bound_by) of the denoise kernel: 11 planes read and 3
+    written; its float32 operations over the stencil's in-frame taps."""
+    def taps(n):  # in-frame offsets summed over the positions of an axis
+        return sum(min(i + radius, n - 1) - max(i - radius, 0) + 1
+                   for i in range(n))
+
+    flops = DENOISE_FLOPS_PER_TAP * taps(h) * taps(w) + DENOISE_FLOPS_PER_PX * h * w
+    return bound(56 * h * w, flops, FP32_FLOPS_PER_S)
+
+
+def phase_trace_sizes(smi):
+    """The trace kernel alone at three frame sizes (blue noise, frame 1):
+    time, steps per phase, SIMT efficiency and share of its bound."""
+    for case in tracebench.cases():
+        r = tracebench.measure(*case, torch.device("cuda"), tracebench.REPS)
+        say(4, f"trace kernel alone, {r['scene']} {r['width']}x{r['height']}"
+               f": {r['ms']:.4f} ms; rays per phase {r['rays']}; steps per "
+               f"phase {r['steps']} ({sum(r['steps'])}); step slots "
+               f"{r['slots']}, SIMT efficiency {r['simt_efficiency']:.3f}; "
+               f"{r['ops']} operations; bound {r['bound_ms']:.4f} ms "
+               f"({r['bound_by']}), share {r['share']:.3f} [{smi}]")
+        assert r["device"] == smi and 0 < r["simt_efficiency"] <= 1.0, r
 
 
 def trace_cuda(tables, noise, cam, w, h, frame=1):
@@ -434,11 +532,7 @@ def drive_path(phase, label, scene_name, w, h, path_name, radius, warmup,
     from voxtracer_torch.engine.scene import load_scene
     from voxtracer_torch.ops import denoise, temporal, trace
 
-    kernels = {
-        "trace": trace.render_sample_cuda,
-        "temporal": temporal.temporal_blend_reproject_cuda,
-        "denoise": denoise.denoise_cuda,
-    }
+    kernels = frame_kernels()
     scene = load_scene(scene_name)
     path = camera_paths.PATHS[path_name](scene)
     cams = (path(i / 30.0) for i in itertools.count())
@@ -468,7 +562,8 @@ def drive_path(phase, label, scene_name, w, h, path_name, radius, warmup,
     n = warmup + bursts * frames
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     assert moving == n - 1, f"{moving} moving frames of {n}"
-    want = {"trace": n, "temporal": moving, "denoise": n if radius else 0}
+    want = {"trace": n, "temporal": moving, "denoise": n if radius else 0,
+            "resample": 0}
     assert launches == want, f"launches {launches} != {want}"
 
     image = out["image"].cpu().numpy()
@@ -516,6 +611,8 @@ def drive_path(phase, label, scene_name, w, h, path_name, radius, warmup,
     cerr = (g["color"] - p["color"]).abs().amax(0)
     assert flips == 0 and torch.equal(g["depth"], p["depth"])
     assert int((cerr > 1e-3).sum()) <= 0.005 * w * h
+    assert torch.equal(g["rays"][:3], p["rays"][:3])
+    assert torch.equal(g["steps"][:3], p["steps"][:3]), (g["steps"], p["steps"])
     blend_eq = torch.equal(kb, pb)
     herr = float((kc - pc).abs().max())
     kept_next = int(((pb < 0.5) & (g["depth"] >= 0)).sum())
@@ -539,6 +636,8 @@ def drive_path(phase, label, scene_name, w, h, path_name, radius, warmup,
         "temporal": {"max_abs_err": herr, "ms": stage["temporal"],
                      "plain_ms": stage["temporal plain"]},
     }
+    entries["temporal"]["bound_ms"], entries["temporal"]["bound_by"] = bound(
+        64 * h * w, TEMPORAL_FLOPS_PER_PX * h * w, FP32_FLOPS_PER_S)
     if radius:
         kd = denoise.denoise_cuda(*dargs)
         pd = denoise.denoise_plain(*dargs)
@@ -554,6 +653,8 @@ def drive_path(phase, label, scene_name, w, h, path_name, radius, warmup,
         entries["denoise"] = {"max_abs_err": float(derr.max()),
                               "ms": stage["denoise"],
                               "plain_ms": stage["denoise plain"]}
+        (entries["denoise"]["bound_ms"],
+         entries["denoise"]["bound_by"]) = denoise_bound(h, w, radius)
     say(phase, "kernels alone on the next frame's inputs: "
                + ", ".join(f"{k} {v:.4f} ms" for k, v in stage.items())
                + f"; {checks} [{smi}]")
@@ -584,7 +685,7 @@ def drive_path(phase, label, scene_name, w, h, path_name, radius, warmup,
                f"{ms:.3f} ms; u8 px differing by >2 after 2 frames {n_px} "
                f"of {w * h} [{smi}]")
     assert n_px <= 0.005 * w * h
-    return launches, entries
+    return {name: k / n for name, k in launches.items()}, launches, entries
 
 
 def run_captured(phase, fn, argv):
@@ -656,8 +757,41 @@ def phase_resample(smi, poses):
                f"ms, plain {p_ms:.3f} ms [{smi}]")
         assert equal and err == 0.0 and bool(kok.all()) and bool(pok.all())
         assert torch.equal(nan_px, ~finite)
-        entry = entry or {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms}
+        if entry is None:
+            entry = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms}
+            channels = hist.shape[0]
+            entry["bound_ms"], entry["bound_by"] = bound(
+                (8 * channels + 9) * h * w,
+                RESAMPLE_FLOPS_PER_PX_PLANE * channels * h * w,
+                FP32_FLOPS_PER_S)
+            entry["library_ms"], lib_err = grid_sample_yardstick(
+                hist, px_f, py_f, ks, smi)
+            entry["library_max_abs_diff"] = lib_err
     return entry
+
+
+def grid_sample_yardstick(hist, px_f, py_f, kernel_out, smi):
+    """One PyTorch call computing the resample: ``F.grid_sample`` with
+    bilinear taps, border padding and aligned corners at the same pixel
+    centres (the port never calls it).  Returns its time and its largest
+    difference from the kernel's output."""
+    import torch.nn.functional as F
+
+    channels, h, w = hist.shape
+    gx = (px_f - 0.5) * (2.0 / (w - 1)) - 1.0
+    gy = (py_f - 0.5) * (2.0 / (h - 1)) - 1.0
+    grid = torch.stack([gx, gy], dim=-1)[None]
+
+    def call():
+        return F.grid_sample(hist[None], grid, mode="bilinear",
+                             padding_mode="border", align_corners=True)
+
+    out = call()[0]
+    diff = float((out - kernel_out).abs().max())
+    ms = cuda_time(call, 20)
+    say(9, f"F.grid_sample yardstick {w}x{h} C={channels}: {ms:.4f} ms, max "
+           f"abs diff from the kernel {diff:g} [{smi}]")
+    return ms, diff
 
 
 def phase_temporal_blend(smi, poses):
@@ -742,21 +876,22 @@ def phase_stallbench(smi):
     say(11, f"cycles per trip (stall cycles per handoff): {summary}; ser:1 "
             f"kernel {ser1['ms']} ms, plain {p_ms:.1f} ms at {default_trips} "
             f"trips, kernel == plain there; launches {launches} [{smi}]")
-    return launches, {"max_abs_err": 0.0, "ms": ser1["ms"], "plain_ms": p_ms}
+    # ser:1 sweeps a 24-row window of the table per element each trip: a
+    # shared load and a select per row, 4096 elements
+    bound_ms, bound_by = bound(
+        (256 * 128 + 2 * 32 * 128) * 4,
+        default_trips * 4096 * 2 * 24, LANE_OPS_PER_S)
+    return launches, {"max_abs_err": 0.0, "ms": ser1["ms"], "plain_ms": p_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "launches_per_frame": {}}
 
 
 def phase_harness(smi):
     """``voxtracer_torch.app.bench.main([])``: configs 1-6 at their full
     sizes.  Returns the launch counts of that run."""
     from voxtracer_torch.app import bench
-    from voxtracer_torch.ops import denoise, reproject, temporal, trace
 
-    kernels = {
-        "trace": trace.render_sample_cuda,
-        "temporal": temporal.temporal_blend_reproject_cuda,
-        "denoise": denoise.denoise_cuda,
-        "resample": reproject.resample_cuda,
-    }
+    kernels = frame_kernels()
     for k in kernels.values():
         k.launches = 0
     t0 = time.perf_counter()
@@ -780,44 +915,77 @@ def phase_harness(smi):
     return launches
 
 
+def check_no_jax_package():
+    """The run imported nothing of the JAX package, JAX or Triton."""
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("voxtracer", "jax", "jaxlib", "triton"))
+    say(13, f"modules of the JAX package, JAX or Triton imported: {bad}")
+    assert not bad, bad
+
+
 def main():
     smi = phase_device()
     phase_build()
     phase_golden()
-    phase_plain()
-    phase_main(smi)
+    trace_err = phase_plain()
+    main_trace, main_counts = phase_main(smi)
+    per_frame = {"config 2": {name: n / (WARMUP + BURSTS * FRAMES)
+                              for name, n in main_counts.items()}}
+    phase_trace_sizes(smi)
     temporal_err, dolly, poses = phase_temporal(smi)
     denoise_err = phase_denoise(smi, dolly)
-    launches, entries = drive_path(7, "config 4: monu9", "monu9", 1920, 1080,
-                                   "dolly", 2, WARMUP, BURSTS, FRAMES, smi)
-    _, config3 = drive_path(8, "config 3: chr_knight", "chr_knight", 1280,
-                            720, "orbit", 0, WARMUP, 2, 8, smi)
+    per_frame["config 4"], launches, entries = drive_path(
+        7, "config 4: monu9", "monu9", 1920, 1080, "dolly", 2, WARMUP, BURSTS,
+        FRAMES, smi)
+    per_frame["config 3"], _, config3 = drive_path(
+        8, "config 3: chr_knight", "chr_knight", 1280, 720, "orbit", 0, WARMUP,
+        2, 8, smi)
     entries["resample"] = phase_resample(smi, poses)
     phase_temporal_blend(smi, poses)
     launches["stall"], entries["stall"] = phase_stallbench(smi)
     launches["resample"] = phase_harness(smi)["resample"]
-    # times from config 4's frame; the error is the largest of every
-    # comparison of the kernel with its plain version
+    check_no_jax_package()
+    # The trace's times, bound and launches come from the main path
+    # (config 2, phase 4), the temporal and denoise kernels' from config
+    # 4's frame, the resample kernel's launches from the harness; each
+    # error is the largest of every comparison of the kernel with its
+    # plain version
+    launches["trace"] = main_counts["trace"]
+    entries["trace"] = {
+        **main_trace, "max_abs_err": max(
+            main_trace["max_abs_err"], trace_err,
+            entries["trace"]["max_abs_err"])}
     for name, err in (("temporal", temporal_err), ("denoise", denoise_err),
                       *((k, e["max_abs_err"]) for k, e in config3.items())):
         entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"], err)
+    for name in ("trace", "temporal", "denoise", "resample"):
+        entries[name]["launches_per_frame"] = {
+            config: counts[name] for config, counts in per_frame.items()}
+    entries["stall"]["launches_per_frame"] = {config: 0.0 for config in per_frame}
+    for name in ("trace", "temporal", "denoise", "stall"):
+        entries[name]["library_ms"] = None  # no one PyTorch call computes it
     sources = {
         "trace": ("voxtracer_torch/csrc/trace.cu",
-                  "voxtracer/ops/trace_pallas.py:1654"),
+                  "voxtracer/ops/trace_pallas.py:2301"),
         "temporal": ("voxtracer_torch/csrc/temporal.cu",
-                     "voxtracer/ops/temporal_pallas.py:95"),
+                     "voxtracer/ops/temporal_pallas.py:516"),
         "denoise": ("voxtracer_torch/csrc/denoise.cu",
-                    "voxtracer/ops/denoise_pallas.py:61"),
+                    "voxtracer/ops/denoise_pallas.py:370"),
         "resample": ("voxtracer_torch/csrc/reproject.cu",
-                     "voxtracer/ops/reproject_pallas.py:79"),
+                     "voxtracer/ops/reproject_pallas.py:301"),
         "stall": ("voxtracer_torch/csrc/stallbench.cu",
-                  "voxtracer/app/stallbench.py:65"),
+                  "voxtracer/app/stallbench.py:171"),
     }
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "launches_per_frame", "library_ms")
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], **entries[name]}
+         "launches": launches[name],
+         **{k: entries[name][k] for k in keys},
+         **{k: v for k, v in entries[name].items() if k not in keys}}
         for name, (src, rep) in sources.items()
     ]
+    assert all(k["launches"] > 0 for k in kernels), kernels
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

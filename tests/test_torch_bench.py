@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from voxtracer_torch.app import bench, camera_paths, phasestats
+from voxtracer_torch.app import bench, camera_paths, phasestats, tracebench
 from voxtracer_torch.engine.camera import Camera
 from voxtracer_torch.engine.params import RenderParams, pack_trace_params
 from voxtracer_torch.engine.scene import SceneTables, available_scenes, load_scene
@@ -124,6 +124,7 @@ def test_phase_stats_rows_sum_to_the_trace_rays():
     out = phasestats.render_one_sample(scene, cam, h, w, torch.device("cpu"))
     assert [r["phase"] for r in rows] == phasestats.PHASES
     assert sum(r["rays"] for r in rows) == int(out["rays"].sum())
+    assert [r["steps"] for r in rows] == out["steps"].tolist()
     rays = {r["phase"]: r["rays"] for r in rows}
     hits = int((out["depth"] >= 0).sum())
     assert rays["b0"] == h * w  # every pixel's primary ray
@@ -160,3 +161,50 @@ def test_harness_refuses_cuda_without_a_card():
         pytest.skip("a CUDA GPU is present")
     with pytest.raises(SystemExit, match="cuda"):
         bench.main(["--only", "1"])
+
+
+def test_tracebench_counts_the_plain_sample():
+    """tracebench on the CPU (the plain version) at a fiftieth of the
+    menger size: its counters are the trace's, its operations the
+    per-kind sum, and its bound the larger of bytes and operations."""
+    ((name, scene, cam, w, h),) = tracebench.cases(["menger"], 0.02)
+    assert (name, w, h) == ("menger", 26, 14)
+    row = tracebench.measure(name, scene, cam, w, h, torch.device("cpu"), 1)
+    tables = SceneTables(scene, "cpu")
+    out = trace.render_sample(
+        tables, pack_trace_params(cam.rows(w, h), RenderParams()),
+        torch.from_numpy(tracebench.blue_noise_buffer()), 1, h, w)
+    assert row["rays"] == out["rays"].tolist()
+    assert row["steps"] == out["steps"].tolist()
+    assert row["slots"] is None and row["simt_efficiency"] is None
+    rays, steps = row["rays"], sum(row["steps"])
+    assert rays[0] == w * h and steps > sum(rays) > 0
+    assert row["ops"] == (
+        tracebench.OPS_PER_STEP * steps + tracebench.OPS_PER_RAY * sum(rays)
+        + tracebench.OPS_PER_HIT * (rays[2] + rays[4] + rays[5])
+        + tracebench.OPS_PER_PIXEL * w * h
+        + tracebench.OPS_PER_BOUNCE * (rays[2] + rays[4])
+        + tracebench.OPS_PER_LAST_HIT * rays[5])
+    words = sum(getattr(tables, n).numel() for n in
+                ("packed_idx", "meta_idx", "brick_idx", "palette"))
+    t_bytes = (44 * w * h + 4 * words + 24 * 128 * 128 * 4) / 3.35e9
+    t_ops = row["ops"] / 33.5e9
+    assert row["bound_ms"] == pytest.approx(max(t_bytes, t_ops), rel=1e-12)
+    assert row["bound_by"] == ("bytes" if t_bytes >= t_ops else "operations")
+    assert row["share"] == row["bound_ms"] / row["ms"] and row["device"] == "cpu"
+
+
+@pytest.mark.parametrize("ops, nbytes, by", [(67e9, 1e6, "operations"),
+                                             (1e3, 3.35e9, "bytes")])
+def test_bound_is_the_larger_time(ops, nbytes, by):
+    bound_ms, bound_by = tracebench.bound(nbytes, ops, tracebench.LANE_OPS_PER_S)
+    assert bound_by == by
+    assert bound_ms == pytest.approx(max(nbytes / 3.35e9, ops / 33.5e9),
+                                     rel=1e-12)
+
+
+def test_tracebench_refuses_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA GPU is present")
+    with pytest.raises(SystemExit, match="CUDA"):
+        tracebench.main([])

@@ -7,11 +7,13 @@ card.  Needs an NVIDIA GPU and nvcc; skips elsewhere.  On the card:
 
 Tolerances: trace node, depth, normal and albedo bit-exact (the kernels
 are built without FMA contraction and perform the plain versions' float
-operations in their order); trace color: cos/sin/exp/log may round
-differently in the two builds, which can turn a secondary ray at a
-grazing edge, so at most 0.5% of pixels may differ by more than 1e-3 (0
-measured on an H100 with torch 2.11 / CUDA 12.8).  Temporal: validity
-and next blend bit-exact, colour within 1e-6 (no transcendental).
+operations in their order), and so are the rays and DDA steps of the
+phases before the first hemisphere sample (b0, s0, b1); trace color:
+cos/sin/exp/log may round differently in the two builds, which can turn
+a secondary ray at a grazing edge, so at most 0.5% of pixels may differ
+by more than 1e-3 (0 measured on an H100 with torch 2.11 / CUDA 12.8).
+Temporal: validity and next blend bit-exact, colour within 1e-6 (no
+transcendental).
 Denoise: 1e-6 absolute plus 1e-6 relative (expf/logf may round
 differently from torch's).  Resample: bit-equal, NaN where a coordinate
 is not finite (no transcendental).  Stall microbenchmark: integer,
@@ -25,7 +27,6 @@ import pytest
 import torch
 
 from voxtracer_torch.app import bench, camera_paths, stallbench
-from voxtracer_torch.engine import scene as scene_mod
 from voxtracer_torch.engine.camera import Camera
 from voxtracer_torch.engine.params import (
     DenoiseParams,
@@ -44,6 +45,7 @@ from voxtracer_torch.engine.scene import (
 )
 from voxtracer_torch.ops import denoise, reproject, temporal, trace
 from voxtracer_torch.ops.noise import blue_noise_buffer, white_noise_buffer
+from voxtracer_torch.scene import grid
 
 pytestmark = pytest.mark.cuda
 
@@ -82,6 +84,9 @@ def _assert_kernel_matches_plain(k, p):
     err = np.abs(k["color"] - p["color"]).max(-1)
     assert (err > 1e-3).mean() <= 0.005
     np.testing.assert_array_equal(k["rays"][:3], p["rays"][:3])
+    np.testing.assert_array_equal(k["steps"][:3], p["steps"][:3])
+    # the traversal's SIMT efficiency is a share
+    assert 0 < k["steps"].sum() <= 32 * k["slots"][0]
 
 
 def test_kernel_matches_plain_single_voxel(cuda):
@@ -98,11 +103,25 @@ def test_kernel_matches_plain_single_voxel(cuda):
 @pytest.mark.parametrize("dedup_max", [None, 0], ids=["dedup", "per_node"])
 def test_kernel_matches_plain_menger(cuda, dedup_max, monkeypatch):
     if dedup_max is not None:
-        monkeypatch.setattr(scene_mod.grid, "BRICK_DEDUP_MAX", dedup_max)
+        monkeypatch.setattr(grid, "BRICK_DEDUP_MAX", dedup_max)
     _assert_kernel_matches_plain(*_both(
         load_scene("menger"), MENGER, 160, 96,
         torch.from_numpy(blue_noise_buffer()), cuda,
     ))
+
+
+def test_kernel_matches_plain_ragged_size(cuda):
+    """333x187 is no multiple of the kernel's 16x16 block."""
+    _assert_kernel_matches_plain(*_both(
+        load_scene("menger"), MENGER, 333, 187,
+        torch.from_numpy(blue_noise_buffer()), cuda,
+    ))
+
+
+def test_kernel_info(cuda):
+    """The kernel spills nothing and keeps warps resident."""
+    info = trace.kernel_info()
+    assert info["spill_bytes"] == 0 and info["warps_per_sm"] >= 24, info
 
 
 def test_kernel_matches_golden(cuda):

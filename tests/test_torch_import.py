@@ -24,15 +24,16 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_imports_neither_jax_nor_triton():
-    """Every module of the port imports without JAX or Triton (a fresh
-    interpreter: this test process has JAX loaded by conftest)."""
+    """Every module of the port imports without JAX, Triton or any
+    module of the JAX package ``voxtracer`` (a fresh interpreter: this
+    test process has JAX loaded by conftest)."""
     code = (
         "import pkgutil, sys, json, importlib, voxtracer_torch\n"
         "names = [m.name for m in pkgutil.walk_packages("
         "voxtracer_torch.__path__, 'voxtracer_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'triton'))\n"
+        "('jax', 'jaxlib', 'triton', 'voxtracer'))\n"
         "print(json.dumps({'modules': names, 'bad': bad}))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -43,8 +44,11 @@ def test_port_imports_neither_jax_nor_triton():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("trace", "temporal", "denoise", "reproject", "_build"):
         assert f"voxtracer_torch.ops.{name}" in res["modules"]
-    for name in ("cli", "bench", "phasestats", "stallbench"):
+    for name in ("cli", "bench", "phasestats", "stallbench", "tracebench"):
         assert f"voxtracer_torch.app.{name}" in res["modules"]
+    for name in ("io.vox", "io.image", "scene.grid", "scene.procedural",
+                 "native", "oracle.renderer", "ops.noise"):
+        assert f"voxtracer_torch.{name}" in res["modules"]
     assert res["bad"] == []
 
 

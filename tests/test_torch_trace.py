@@ -19,7 +19,7 @@ import torch
 from voxtracer.ops import noise as noise_op
 from voxtracer.ops import trace_xla
 from voxtracer.oracle import renderer as oracle
-from voxtracer.scene import grid as grid_mod
+from voxtracer.scene import grid as jgrid
 from voxtracer_torch.engine.camera import Camera
 from voxtracer_torch.engine.params import RenderParams, pack_trace_params
 from voxtracer_torch.engine.scene import (
@@ -29,6 +29,7 @@ from voxtracer_torch.engine.scene import (
     load_scene,
 )
 from voxtracer_torch.ops import trace
+from voxtracer_torch.scene import grid as tgrid
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "oracle_8x8x8_32.npz")
 MENGER_POS = (36.0, 34.0, -5.0)  # bench.py's camera
@@ -171,7 +172,8 @@ def test_per_node_brick_tables(monkeypatch):
     cam = Camera(position=np.array([0.3, 0.2, -1.5]))
     buf = noise_op.white_noise_buffer(seed=7, count=32)
     dedup, t_dedup = _plain(scene, cam, 48, 32, buf)
-    monkeypatch.setattr(grid_mod, "BRICK_DEDUP_MAX", 0)
+    for grid_mod in (jgrid, tgrid):
+        monkeypatch.setattr(grid_mod, "BRICK_DEDUP_MAX", 0)
     per_node, t_node = _plain(scene, cam, 48, 32, buf)
     assert t_dedup.brick_dedup and t_dedup.brick_idx.shape[0] == 3
     assert not t_node.brick_dedup and t_node.brick_idx.shape[0] == 2
@@ -226,6 +228,54 @@ def test_ray_counts_are_exact():
     assert out["rays"].dtype == torch.int64
     assert b0 == 32 * 24 and b1 == hits
     assert 0 < s0 <= b1 and s1 <= b2 <= b1 and s2 <= b2
+
+
+def _menger_16x9(monkeypatch=None):
+    """The plain sample on menger at 16x9 with the bench camera (white
+    noise seed 7, frame 1); with ``monkeypatch``, also every traversal
+    call's (origins, directions, mask, steps), in phase order."""
+    tables = SceneTables(load_scene("menger"), "cpu")
+    cam = Camera(position=np.array(MENGER_POS), direction=np.array(MENGER_DIR))
+    calls = []
+    if monkeypatch is not None:
+        walk = trace._traverse
+
+        def recording(tab, o, d, mask):
+            res = walk(tab, o, d, mask)
+            calls.append((o, d, mask, int(res[-1])))
+            return res
+
+        monkeypatch.setattr(trace, "_traverse", recording)
+    out = trace.render_sample_plain(
+        tables, pack_trace_params(cam.rows(16, 9), RenderParams()),
+        torch.from_numpy(noise_op.white_noise_buffer(seed=7, count=32)),
+        1, 9, 16,
+    )
+    return out, tables, calls
+
+
+def test_step_counts_equal_one_ray_at_a_time(monkeypatch):
+    """Per-phase ``steps`` of the compacting lockstep walk equal the sum
+    of the same traversal run one ray at a time."""
+    walk = trace._traverse
+    out, tables, calls = _menger_16x9(monkeypatch)
+    assert len(calls) == trace.N_PHASES
+    for k, (o, d, mask, steps) in enumerate(calls):
+        single = 0
+        for i in torch.nonzero(mask).squeeze(1).tolist():
+            one = slice(i, i + 1)
+            single += int(walk(tables, [v[one] for v in o],
+                               [v[one] for v in d], mask[one])[-1])
+        assert single == steps == int(out["steps"][k]), k
+    assert out["steps"].dtype == torch.int64
+    assert (out["steps"] > 0).all()
+
+
+def test_ray_counts_pinned_menger():
+    """The per-phase rays of the bench camera's menger at 16x9 (white
+    noise seed 7, frame 1), as measured before the step counter."""
+    out, _, _ = _menger_16x9()
+    assert out["rays"].tolist() == [144, 104, 132, 24, 44, 16]
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():

@@ -35,9 +35,6 @@ import traceback
 import numpy as np
 import torch
 
-from voxtracer.oracle import renderer as oracle
-from voxtracer.ops.noise import noise_planes
-
 from ..engine.camera import Camera
 from ..engine.params import (
     DenoiseParams,
@@ -52,7 +49,8 @@ from ..ops import denoise as denoise_op
 from ..ops import temporal as temporal_op
 from ..ops import tonemap
 from ..ops import trace as trace_op
-from ..ops.noise import blue_noise_buffer, white_noise_buffer
+from ..ops.noise import blue_noise_buffer, noise_planes, white_noise_buffer
+from ..oracle import renderer as oracle
 from . import camera_paths
 from .phasestats import phase_stats
 

@@ -23,12 +23,11 @@ import time
 
 import numpy as np
 
-from voxtracer.io.image import write_png
-
 from ..engine.camera import Camera
 from ..engine.params import DenoiseParams, RenderParams, TemporalParams
 from ..engine.pipeline import Renderer
 from ..engine.scene import available_scenes, load_scene
+from ..io.image import write_png
 from ..ops.noise import blue_noise_buffer, white_noise_buffer
 from . import camera_paths
 

@@ -1,17 +1,18 @@
-"""Per-phase ray counts of one traced sample.
+"""Per-phase ray and step counts of one traced sample.
 
 Counterpart of :mod:`voxtracer.app.phasestats` for what the port's trace
 counts: the rays entering each traversal phase [b0, s0, b1, s1, b2, s2]
-(bounce and shadow phases of the 3 bounces, image pixels only), from
-the trace's ``rays`` output (the CUDA kernel's per-phase counters on the
-card, the plain version's on the CPU).  One sample with the white-noise
-buffer of seed 7 at frame 1, as the reference renders it.  The exact
-Mrays/s numerator of the BASELINE harness (``app/bench.py``).
+(bounce and shadow phases of the 3 bounces, image pixels only) and the
+DDA steps they took (outer steps plus advancing micro-DDA steps), from
+the trace's ``rays`` and ``steps`` outputs (the CUDA kernel's counters
+on the card, the plain version's on the CPU; equal on b0, s0, b1).  One
+sample with the white-noise buffer of seed 7 at frame 1, as the
+reference renders it.  The exact Mrays/s numerator of the BASELINE
+harness (``app/bench.py``).
 
 The reference's serve, utilization and live-decay columns, ``--cfg`` and
 ``--floor`` measure the TPU kernel's lane queues and knobs and have no
-counterpart; per-phase step counts would need new counters in the trace
-kernel.
+counterpart.
 
 Run: python -m voxtracer_torch.app.phasestats --scene menger \\
          --size 1280x720 --pos 36,34,-5 --dir=-16,-14,25 [--device cuda]
@@ -47,9 +48,11 @@ def render_one_sample(scene, cam, h, w, device):
 
 
 def phase_stats(scene, cam, h, w, device):
-    """One traced sample's per-phase rows: ``{"phase", "rays"}``."""
-    rays = render_one_sample(scene, cam, h, w, device)["rays"].tolist()
-    return [dict(phase=name, rays=float(n)) for name, n in zip(PHASES, rays)]
+    """One traced sample's per-phase rows: ``{"phase", "rays", "steps"}``."""
+    out = render_one_sample(scene, cam, h, w, device)
+    return [dict(phase=name, rays=float(n), steps=float(k))
+            for name, n, k in zip(PHASES, out["rays"].tolist(),
+                                  out["steps"].tolist())]
 
 
 def main(argv=None):
@@ -80,11 +83,13 @@ def main(argv=None):
         raise SystemExit("--device cuda but torch.cuda.is_available() is False")
     rows = phase_stats(scene, cam, h, w, device)
     print(f"# {args.scene} {w}x{h} on {device}")
-    print(f"{'phase':>6} {'rays':>12} {'Mrays':>8}")
-    for r in rows:
-        print(f"{r['phase']:>6} {r['rays']:12.0f} {r['rays'] / 1e6:8.3f}")
-    total = sum(r["rays"] for r in rows)
-    print(f"{'total':>6} {total:12.0f} {total / 1e6:8.3f}")
+    print(f"{'phase':>6} {'rays':>12} {'Mrays':>8} {'steps':>12} "
+          f"{'steps/ray':>9}")
+    for r in rows + [dict(phase="total", rays=sum(r["rays"] for r in rows),
+                          steps=sum(r["steps"] for r in rows))]:
+        per_ray = r["steps"] / r["rays"] if r["rays"] else 0.0
+        print(f"{r['phase']:>6} {r['rays']:12.0f} {r['rays'] / 1e6:8.3f} "
+              f"{r['steps']:12.0f} {per_ray:9.2f}")
     return 0
 
 

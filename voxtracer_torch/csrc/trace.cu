@@ -18,12 +18,31 @@
 // plain indexed load.  The tables stay in global memory (menger's total
 // about 1 MB and stay resident in the 50 MB L2); the 1024-entry palette
 // sits in shared memory; the (S, 128, 128) noise buffer is read raw.
+// A miss adds the sky and ends its path, and the last bounce traces no
+// next ray, so neither computes the shading terms the plain version
+// computes for every lane and then discards.
+//
+// Counters.  Exact per-phase `rays` (traversals started) and `steps`
+// (outer DDA steps plus advancing micro-DDA steps; the plain version
+// counts the same), and `slots`: over the warps and phases, the largest
+// step count among a warp's lanes, the step slots a warp spends when
+// its lanes march in lockstep, so steps / (32 x slots) is the SIMT
+// efficiency of the traversal.  Each warp reduces its lanes' counts
+// once per phase into per-block shared counters; a block adds them to
+// the output with one atomic each (on an H100, cheaper than keeping
+// each thread's steps in shared memory for one reduction at the
+// block's end; PERF.md §6).
 //
 // What bounds it: each DDA step is a chain of dependent loads (meta
 // word, then brick mask) plus divergence between the rays of a warp,
-// whose step counts differ.  Nothing here hides that latency beyond the
-// warps the SM keeps resident; wavefront queues or persistent threads
-// are for later, after a measurement on the card.
+// whose step counts differ (SIMT efficiency 0.28 at menger 720p, 0.45
+// at castle 4K).  Two alternatives were measured slower on an H100
+// (PERF.md §6 has the numbers): a persistent variant (warps claiming
+// pixel tiles from a global queue, per-lane path state machines
+// refilled in batched shading rounds, tables in shared memory), whose
+// shading rounds run the union of the lanes' divergent paths; and
+// capping this kernel at 64 registers for 32 resident warps instead of
+// 24, which spills.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -77,7 +96,11 @@ struct Hit {
     float t;
     int slot;
     float nx, ny, nz;
+    int steps;  // outer steps plus advancing micro steps
 };
+
+// the counters: rays[N_PHASES], steps[N_PHASES], slots
+constexpr int N_COUNTERS = 2 * N_PHASES + 1;
 
 // min / max that return NaN when either operand is NaN, as torch.minimum
 // and jnp.minimum do (fminf would drop it).  Only the slab test can see
@@ -131,7 +154,7 @@ __device__ __forceinline__ bool brick_bit(int b_lo, int b_hi, int cx, int cy,
 
 __device__ Hit traverse(const Geometry& g, const Tables& tb, float ox,
                         float oy, float oz, float dx, float dy, float dz) {
-    Hit r = {false, false, 0.f, 0, 0.f, 0.f, 0.f};
+    Hit r = {false, false, 0.f, 0, 0.f, 0.f, 0.f, 0};
     const float ogx = (float)g.ox, ogy = (float)g.oy, ogz = (float)g.oz;
     const float invx = dx != 0.f ? 1.0f / dx : CUDART_INF_F;
     const float invy = dy != 0.f ? 1.0f / dy : CUDART_INF_F;
@@ -162,7 +185,7 @@ __device__ Hit traverse(const Geometry& g, const Tables& tb, float ox,
 
     bool active = true;
     bool hit = false;
-    int hslot_u = 0, hcx = 0, hcy = 0, hcz = 0;
+    int hslot_u = 0, hcx = 0, hcy = 0, hcz = 0, steps = 0;
     float hit_t = 0.f;
     for (int step = 0; step < MAX_RAY_STEPS; ++step) {
         // 1. bounds check: a ray that left the grid misses
@@ -171,6 +194,7 @@ __device__ Hit traverse(const Geometry& g, const Tables& tb, float ox,
             active = false;
             break;
         }
+        ++steps;
         // 2. the node's 16-bit meta halfword: bit 15 = occupied (with the
         // brick index or uniform slot below it); else a chebyshev
         // distance in nodes
@@ -205,6 +229,7 @@ __device__ Hit traverse(const Geometry& g, const Tables& tb, float ox,
                 else if (bsy) cy += sy;
                 else cz += sz;
                 t = fmaxf(t, bt);
+                ++steps;
                 if ((cx >> 2) != qx || (cy >> 2) != qy || (cz >> 2) != qz)
                     break;
             }
@@ -242,6 +267,7 @@ __device__ Hit traverse(const Geometry& g, const Tables& tb, float ox,
             t = fmaxf(t, bt);
         }
     }
+    r.steps = steps;
     bool fused = false;
     if (active) {
         // step cap: opaque black leaf at the current cell
@@ -304,17 +330,36 @@ __device__ __forceinline__ void node_rgb(int node, float& r, float& g,
     b = (float)(node & 0xFF) / 255.0f;
 }
 
+// adds the steps of one phase's rays of the converged lanes to the
+// block's counters: their sum to steps[phase], their largest to slots
+__device__ __forceinline__ void count_steps(unsigned* cnt, int phase,
+                                            int steps) {
+    const unsigned lanes = __activemask();
+    const unsigned sum = __reduce_add_sync(lanes, (unsigned)steps);
+    const unsigned most = __reduce_max_sync(lanes, (unsigned)steps);
+    const int lane = (threadIdx.y * BLOCK_X + threadIdx.x) & 31;
+    if (lane == __ffs(lanes) - 1 && sum) {
+        atomicAdd(cnt + N_PHASES + phase, sum);
+        atomicAdd(cnt + 2 * N_PHASES, most);
+    }
+}
+
 __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
 trace_kernel(const Params P, const Geometry g, const Tables tb,
              const int* __restrict__ palette, const float* __restrict__ noise,
              int n_slices, int frame, int height, int width,
              float* __restrict__ color, float* __restrict__ normal,
              float* __restrict__ albedo, float* __restrict__ depth,
-             int* __restrict__ node_out, unsigned long long* __restrict__ rays) {
+             int* __restrict__ node_out,
+             unsigned long long* __restrict__ counters) {
     __shared__ int pal[PALETTE_SLOTS];
+    // this block's counters (a block's steps fit 32 bits: 256 rays of at
+    // most 6 x MAX_RAY_STEPS steps a phase)
+    __shared__ unsigned cnt[N_COUNTERS];
     const int tid = threadIdx.y * BLOCK_X + threadIdx.x;
     for (int i = tid; i < PALETTE_SLOTS; i += BLOCK_X * BLOCK_Y)
         pal[i] = palette[i];
+    if (tid < N_COUNTERS) cnt[tid] = 0;
     __syncthreads();
 
     const int x = blockIdx.x * BLOCK_X + threadIdx.x;
@@ -360,7 +405,22 @@ trace_kernel(const Params P, const Geometry g, const Tables tb,
             const int k0 = RANDS_PER_BOUNCE * bounce;
             traced |= 1u << (2 * bounce);
             const Hit h = traverse(g, tb, rox, roy, roz, rdx, rdy, rdz);
-            const bool hit = h.hit;
+            count_steps(cnt, 2 * bounce, h.steps);
+            if (!h.hit) {
+                // a miss adds the sky, with the sun disk on the primary
+                // ray only, and ends the path
+                float sky[3] = {pp[21], pp[22], pp[23]};
+                if (bounce == 0) {
+                    const float base =
+                        fmaxf(dot3(rdx, rdy, rdz, -nsx, -nsy, -nsz), 1e-38f);
+                    const float glow = expf(logf(base) / glow_div);
+                    for (int i = 0; i < 3; ++i)
+                        sky[i] = sky[i] + scol[i] * glow;
+                }
+                for (int i = 0; i < 3; ++i)
+                    sample[i] = sample[i] + sky[i] * blend[i];
+                break;
+            }
             const int node = h.fused ? LEAF_BIT : pal[h.slot];
             const float hx = rox + h.t * rdx;
             const float hy = roy + h.t * rdy;
@@ -375,9 +435,8 @@ trace_kernel(const Params P, const Geometry g, const Tables tb,
             }
             const float emissive = (node & EMISSIVE_BIT) ? 1.f : 0.f;
             for (int i = 0; i < 3; ++i)
-                sample[i] = sample[i] +
-                            (hit ? emissive * emit * c[i] * blend[i] : 0.f);
-            if (bounce == 0 && hit) {
+                sample[i] = sample[i] + emissive * emit * c[i] * blend[i];
+            if (bounce == 0) {
                 first_node = node;
                 fn[0] = h.nx;
                 fn[1] = h.ny;
@@ -386,14 +445,6 @@ trace_kernel(const Params P, const Geometry g, const Tables tb,
             }
             const float nx = h.nx, ny = h.ny, nz = h.nz;
             const bool specular = rnd(k0) < specularity;
-
-            // specular reflection
-            const float ddn = dot3(nx, ny, nz, rdx, rdy, rdz);
-            float rfx = rdx - 2.0f * ddn * nx;
-            float rfy = rdy - 2.0f * ddn * ny;
-            float rfz = rdz - 2.0f * ddn * nz;
-            norm_div3(rfx, rfy, rfz);
-            const float spec_dot = dot3(rfx, rfy, rfz, nx, ny, nz);
 
             // sun next-event estimation: a jittered direction in the disk
             const float rdax = rnd(k0 + 1), rday = rnd(k0 + 2),
@@ -418,64 +469,64 @@ trace_kernel(const Params P, const Geometry g, const Tables tb,
             // the shadow ray is skipped where the sun is behind the
             // surface: its contribution is clamped to zero regardless
             const float cos_term = fmaxf(dot3(nx, ny, nz, shx, shy, shz), 0.f);
-            const bool s_mask = hit && !specular && sun_on && cos_term > 0.f;
-
-            // hemisphere sample
-            const float phi = TWO_PI * rnd(k0 + 6);
-            const float hxs = 2.0f * rnd(k0 + 7) - 1.0f;
-            const float pr = sqrtf(fmaxf(1.0f - hxs * hxs, 0.f));
-            const float spx = hxs, spy = pr * cosf(phi), spz = pr * sinf(phi);
-            const float flip = fminf(2.0f * dot3(nx, ny, nz, spx, spy, spz), 0.f);
-            const float hmx = spx - nx * flip;
-            const float hmy = spy - ny * flip;
-            const float hmz = spz - nz * flip;
-            const float diff_dot = dot3(nx, ny, nz, hmx, hmy, hmz);
-
-            const bool spec_sel = specular && hit;
-            const bool diff_sel = !specular && hit;
-            ambient = ambient + ((diff_sel && sun_on) ? 1.f : 0.f);
-
-            // sky on a miss, with the sun disk on the primary ray only
-            float sky[3] = {pp[21], pp[22], pp[23]};
-            if (bounce == 0) {
-                const float base =
-                    fmaxf(dot3(rdx, rdy, rdz, -nsx, -nsy, -nsz), 1e-38f);
-                const float glow = expf(logf(base) / glow_div);
-                for (int i = 0; i < 3; ++i) sky[i] = sky[i] + scol[i] * glow;
-            }
+            const bool s_mask = !specular && sun_on && cos_term > 0.f;
+            ambient = ambient + ((!specular && sun_on) ? 1.f : 0.f);
 
             // the sun add below uses the blend from before this update
             const float lt_blend[3] = {blend[0], blend[1], blend[2]};
-            const float bf_spec = 2.0f * spec_dot;
-            for (int i = 0; i < 3; ++i) {
-                if (spec_sel) blend[i] = blend[i] * col[i] * bf_spec;
-                else if (diff_sel) blend[i] = blend[i] * col[i] * diff_dot;
-            }
-            for (int i = 0; i < 3; ++i)
-                sample[i] = sample[i] + (!hit ? sky[i] * blend[i] : 0.f);
-            if (spec_sel) {
-                rdx = rfx;
-                rdy = rfy;
-                rdz = rfz;
-            } else if (diff_sel) {
-                rdx = hmx;
-                rdy = hmy;
-                rdz = hmz;
-            }
-            if (hit) {
+            // the next ray, which the last bounce does not need
+            if (bounce + 1 < MAX_BOUNCES) {
+                if (specular) {
+                    // specular reflection
+                    const float ddn = dot3(nx, ny, nz, rdx, rdy, rdz);
+                    float rfx = rdx - 2.0f * ddn * nx;
+                    float rfy = rdy - 2.0f * ddn * ny;
+                    float rfz = rdz - 2.0f * ddn * nz;
+                    norm_div3(rfx, rfy, rfz);
+                    const float bf_spec =
+                        2.0f * dot3(rfx, rfy, rfz, nx, ny, nz);
+                    for (int i = 0; i < 3; ++i)
+                        blend[i] = blend[i] * col[i] * bf_spec;
+                    rdx = rfx;
+                    rdy = rfy;
+                    rdz = rfz;
+                } else {
+                    // hemisphere sample
+                    const float phi = TWO_PI * rnd(k0 + 6);
+                    const float hxs = 2.0f * rnd(k0 + 7) - 1.0f;
+                    const float pr = sqrtf(fmaxf(1.0f - hxs * hxs, 0.f));
+                    const float spx = hxs, spy = pr * cosf(phi),
+                                spz = pr * sinf(phi);
+                    const float flip =
+                        fminf(2.0f * dot3(nx, ny, nz, spx, spy, spz), 0.f);
+                    const float hmx = spx - nx * flip;
+                    const float hmy = spy - ny * flip;
+                    const float hmz = spz - nz * flip;
+                    const float diff_dot = dot3(nx, ny, nz, hmx, hmy, hmz);
+                    for (int i = 0; i < 3; ++i)
+                        blend[i] = blend[i] * col[i] * diff_dot;
+                    rdx = hmx;
+                    rdy = hmy;
+                    rdz = hmz;
+                }
                 rox = sox;
                 roy = soy;
                 roz = soz;
             }
 
-            if (s_mask) traced |= 1u << (2 * bounce + 1);
-            const bool obst =
-                s_mask && traverse(g, tb, sox, soy, soz, shx, shy, shz).hit;
-            if (diff_sel && !obst && sun_on)
+            bool obst = false;
+            int shadow_steps = 0;
+            if (s_mask) {
+                traced |= 1u << (2 * bounce + 1);
+                const Hit s = traverse(g, tb, sox, soy, soz, shx, shy, shz);
+                obst = s.hit;
+                shadow_steps = s.steps;
+            }
+            count_steps(cnt, 2 * bounce + 1, shadow_steps);
+            if (!specular && !obst && sun_on)
                 for (int i = 0; i < 3; ++i)
                     sample[i] =
                         sample[i] + scol[i] * col[i] * lt_blend[i] * cos_term;
-            if (!hit) break;
         }
 
         const size_t plane = (size_t)height * width;
@@ -494,13 +545,16 @@ trace_kernel(const Params P, const Geometry g, const Tables tb,
         albedo[2 * plane + o] = emiss_first ? 1.f : ab;
     }
 
-    // exact per-phase ray counts: one atomic per warp and phase
+    // exact per-phase ray counts: one shared atomic per warp and phase,
+    // then one global atomic per block and counter
     const int lane = tid & 31;
     for (int k = 0; k < N_PHASES; ++k) {
         const unsigned bal = __ballot_sync(0xffffffffu, (traced >> k) & 1u);
-        if (lane == 0 && bal)
-            atomicAdd(rays + k, (unsigned long long)__popc(bal));
+        if (lane == 0 && bal) atomicAdd(cnt + k, (unsigned)__popc(bal));
     }
+    __syncthreads();
+    if (tid < N_COUNTERS && cnt[tid])
+        atomicAdd(counters + tid, (unsigned long long)cnt[tid]);
 }
 
 }  // namespace
@@ -510,7 +564,7 @@ extern "C" int vt_trace_launch(
     const int* meta, const int* brick, const int* palette, const float* noise,
     int n_slices, int frame, int height, int width, float* color,
     float* normal, float* albedo, float* depth, int* node,
-    unsigned long long* rays, void* stream) {
+    unsigned long long* counters, void* stream) {
     Params P;
     memcpy(P.p, params_host, sizeof(P.p));
     Geometry g;
@@ -521,6 +575,25 @@ extern "C" int vt_trace_launch(
                     (height + BLOCK_Y - 1) / BLOCK_Y);
     trace_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
         P, g, tb, palette, noise, n_slices, frame, height, width, color,
-        normal, albedo, depth, node, rays);
+        normal, albedo, depth, node, counters);
     return static_cast<int>(cudaGetLastError());
+}
+
+// The kernel's resources: out[0] registers a thread, [1] local bytes a
+// thread, [2] static shared bytes a block, [3] resident blocks per SM,
+// [4] threads a block.
+extern "C" int vt_trace_info(int* out) {
+    cudaFuncAttributes a;
+    cudaError_t err = cudaFuncGetAttributes(&a, trace_kernel);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, trace_kernel, BLOCK_X * BLOCK_Y, 0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    out[0] = a.numRegs;
+    out[1] = (int)a.localSizeBytes;
+    out[2] = (int)a.sharedSizeBytes;
+    out[3] = per_sm;
+    out[4] = BLOCK_X * BLOCK_Y;
+    return 0;
 }

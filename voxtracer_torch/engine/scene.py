@@ -2,7 +2,7 @@
 
 Counterpart of ``voxtracer.parallel.mesh.scene_device_args``: the four
 int32 tables of ``GridScene.device_tables()`` (the trace kernel's scene
-ABI, built by the shared jax-free :mod:`voxtracer.scene`) as module
+ABI, built by the port's :mod:`voxtracer_torch.scene`) as module
 buffers, plus the static geometry both trace implementations need.
 The reference package's VMEM budget and its HBM / XLA fallback chain
 have no counterpart: the tables of every shipped scene fit the card's
@@ -18,9 +18,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from voxtracer.io import vox as voxio
-from voxtracer.scene import grid  # noqa: F401  (BRICK_DEDUP_MAX picks the brick layout)
-from voxtracer.scene import (  # noqa: F401  (re-exported scene types)
+from ..io import vox as voxio
+from ..scene import (  # noqa: F401  (re-exported scene types)
     GridScene,
     VoxelList,
     default_scene,
@@ -61,7 +60,7 @@ class SceneTables(nn.Module):
     """``packed_idx`` (n_rows, 128), ``meta_idx`` (m_rows, 128),
     ``brick_idx`` (3 or 2, b_rows, 128) and ``palette`` (8, 128), int32.
 
-    ``brick_idx`` has two layouts (``voxtracer/scene/grid.py``
+    ``brick_idx`` has two layouts (``voxtracer_torch/scene/grid.py``
     ``_pack_nodes``): content-addressed dedup, 3 planes (mask lo, mask
     hi, uniform slot) indexed by the meta word's 15-bit brick index; or
     per-node, 2 planes (mask lo, mask hi) indexed by the node address,

@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 The sources in ``voxtracer_torch/csrc/*.cu`` export plain C entry
-points (no PyTorch headers), so one ``nvcc`` call builds them in
-seconds into a shared library that ``ctypes`` loads.  The library is
-cached under ``voxtracer_torch/build/`` by a hash of the sources and
-flags, and is built at first use — never at import time.
+points (no PyTorch headers).  One ``nvcc -c`` per source, all started
+together, then one link build them in seconds into a shared library
+that ``ctypes`` loads.  The library is cached under
+``voxtracer_torch/build/`` by a hash of the sources and flags, and is
+built at first use — never at import time.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ BUILD_DIR = os.path.join(PKG_DIR, "build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 
@@ -65,23 +66,41 @@ def build() -> str:
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()],
-            capture_output=True, text=True,
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(src) + ".o")
+                for src in _sources()]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            )
+            for src, obj in zip(_sources(), objs)
+        ]
+        log = []
+        for src, proc in zip(_sources(), procs):
+            stdout, stderr = proc.communicate()
+            log.append(stdout + stderr)
+            if proc.returncode != 0:
+                for other in procs:
+                    other.kill()
+                    other.wait()
+                raise RuntimeError(
+                    f"nvcc failed on {os.path.basename(src)} "
+                    f"({proc.returncode}):\n{stderr}"
+                )
+        lib = os.path.join(tmp, "lib.so")
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", lib, *objs], capture_output=True,
+            text=True,
         )
-        if proc.returncode != 0:
+        if link.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr}"
+                f"nvcc link failed ({link.returncode}):\n{link.stderr}"
             )
         with open(out + ".log", "w") as f:
-            f.write(proc.stdout + proc.stderr)
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+            f.write("".join(log))
+        os.replace(lib, out)
     return out
 
 
@@ -101,9 +120,12 @@ def load() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     # vt_trace_launch(params, geometry, packed, meta, brick, palette,
     #   noise, n_slices, frame, height, width, color, normal, albedo,
-    #   depth, node, rays, stream) -> cudaError_t
+    #   depth, node, counters, stream) -> cudaError_t
     lib.vt_trace_launch.argtypes = [p] * 7 + [i] * 4 + [p] * 6 + [p]
     lib.vt_trace_launch.restype = ctypes.c_int
+    # vt_trace_info(out[5])
+    lib.vt_trace_info.argtypes = [p]
+    lib.vt_trace_info.restype = ctypes.c_int
     # vt_temporal_launch(params, color, normal, depth, old_color,
     #   old_blend, old_depth, height, width, blended, next_blend,
     #   stream) -> cudaError_t

@@ -20,12 +20,19 @@ kernel (built without FMA contraction) agree bit for bit except where a
 transcendental (exp, log, cos, sin) rounds differently on the card.
 
 Outputs are planar: color/normal/albedo (3, H, W) f32, depth (H, W) f32,
-node (H, W) i32, and ``rays`` (6,) int64 — the rays entering each
-traversal phase [b0, s0, b1, s1, b2, s2] (image pixels only).
+node (H, W) i32, ``rays`` (6,) int64 — the rays entering each
+traversal phase [b0, s0, b1, s1, b2, s2] (image pixels only) — and
+``steps`` (6,) int64, the DDA steps those rays took (outer steps plus
+advancing micro-DDA steps; :func:`_traverse`).  The kernel's output
+also has ``slots`` (1,) int64: the lockstep step slots its warps spent
+(see ``csrc/trace.cu``), so that ``steps / (32 * slots)`` is its SIMT
+efficiency.
 """
 
 from __future__ import annotations
 
+import ctypes
+import re
 from typing import Dict, Tuple
 
 import numpy as np
@@ -51,6 +58,8 @@ MISS_NODE = 0xFFFFFF
 NOISE_SIZE = 128
 # 2 * pi rounded as the Pallas kernel rounds it: (2.0 * float32(pi)) in f32
 TWO_PI = float(np.float32(2.0) * np.float32(np.pi))
+# The CUDA kernel's counters: rays, steps (one per phase each), slots.
+N_COUNTERS = 2 * N_PHASES + 1
 
 Vec3 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -99,8 +108,11 @@ def _traverse(tab: SceneTables, o: Vec3, d: Vec3, mask: torch.Tensor):
     """March rays over the table hierarchy to their first occupied cell.
 
     Returns (hit bool, t f32, slot i32, fused bool, (nx, ny, nz) f32),
-    one entry per ray.  Rays finished early leave the working set, so
-    each loop iteration costs only the rays still marching.
+    one entry per ray, and ``steps``: a 0-dim int64 tensor, the DDA
+    steps these rays took — one per outer step (a meta-word visit of a
+    ray inside the grid) and one per fine cell the micro-DDA advanced.
+    Rays finished early leave the working set, so each loop iteration
+    costs only the rays still marching.
     """
     X, Y, Z = tab.dims
     oxi, oyi, ozi = tab.origin
@@ -151,6 +163,7 @@ def _traverse(tab: SceneTables, o: Vec3, d: Vec3, mask: torch.Tensor):
     fused = torch.zeros(n, dtype=torch.bool, device=dev)
     hit_t = torch.zeros(n, dtype=torch.float32, device=dev)
     hslot_u = torch.zeros(n, dtype=i32, device=dev)
+    steps = torch.zeros((), dtype=torch.int64, device=dev)
     hcx = torch.zeros(n, dtype=i32, device=dev)
     hcy = torch.zeros_like(hcx)
     hcz = torch.zeros_like(hcx)
@@ -189,6 +202,7 @@ def _traverse(tab: SceneTables, o: Vec3, d: Vec3, mask: torch.Tensor):
                 break
         (rox, roy, roz), (rdx, rdy, rdz) = r_o, r_d
         (rix, riy, riz), (sx, sy, sz) = r_inv, r_s
+        steps += ids.numel()
 
         # 2. the node's 16-bit meta halfword
         qx, qy, qz = cx >> 2, cy >> 2, cz >> 2
@@ -225,6 +239,7 @@ def _traverse(tab: SceneTables, o: Vec3, d: Vec3, mask: torch.Tensor):
         run = occ.clone()
         for _ in range(MICRO_STEPS):
             run = run & ~brick_bit(cx, cy, cz)
+            steps += run.sum()
             btx = bt_axis(cx, cx + 1, ogx, sx, rox, rix)
             bty = bt_axis(cy, cy + 1, ogy, sy, roy, riy)
             btz = bt_axis(cz, cz + 1, ogz, sz, roz, riz)
@@ -308,7 +323,7 @@ def _traverse(tab: SceneTables, o: Vec3, d: Vec3, mask: torch.Tensor):
     nx = torch.where((ax == m) & hit, -torch.sign(dx), 0.0)
     ny = torch.where((ay == m) & hit, -torch.sign(dy), 0.0)
     nz = torch.where((az == m) & hit, -torch.sign(dz), 0.0)
-    return hit, hit_t, slot, fused, (nx, ny, nz)
+    return hit, hit_t, slot, fused, (nx, ny, nz), steps
 
 
 def _node_rgb(node):
@@ -393,11 +408,12 @@ def render_sample_plain(
     first_n = [zf + ALMOST_INFINITY for _ in range(3)]
     first_t = zf - 1.0
     rays = torch.zeros(N_PHASES, dtype=torch.int64, device=dev)
+    steps = torch.zeros(N_PHASES, dtype=torch.int64, device=dev)
 
     for bounce in range(MAX_BOUNCES):
         k0 = RANDS_PER_BOUNCE * bounce
         rays[2 * bounce] = alive.sum()
-        hit_i, t, slot, fused, (nx, ny, nz) = _traverse(
+        hit_i, t, slot, fused, (nx, ny, nz), steps[2 * bounce] = _traverse(
             tables, (rox, roy, roz), (rdx, rdy, rdz), alive
         )
         hit = hit_i & alive
@@ -495,7 +511,7 @@ def render_sample_plain(
         roz = torch.where(hit, soz, roz)
 
         rays[2 * bounce + 1] = s_mask.sum()
-        obst, _, _, _, _ = _traverse(
+        obst, _, _, _, _, steps[2 * bounce + 1] = _traverse(
             tables, (sox, soy, soz), (shx, shy, shz), s_mask
         )
         sun_gate = diff_sel & ~obst & sun_on
@@ -517,6 +533,7 @@ def render_sample_plain(
         "albedo": planes(alb),
         "node": first_node.reshape(height, width),
         "rays": rays,
+        "steps": steps,
     }
 
 
@@ -546,13 +563,17 @@ def render_sample_cuda(
     launch = _build.load().vt_trace_launch
     dev = tables.device
     f32 = torch.float32
+    # rays (6), steps (6) and slots (1) in one zeroed allocation
+    counters = torch.zeros(N_COUNTERS, dtype=torch.int64, device=dev)
     out = {
         "color": torch.empty((3, height, width), dtype=f32, device=dev),
         "normal": torch.empty((3, height, width), dtype=f32, device=dev),
         "depth": torch.empty((height, width), dtype=f32, device=dev),
         "albedo": torch.empty((3, height, width), dtype=f32, device=dev),
         "node": torch.empty((height, width), dtype=torch.int32, device=dev),
-        "rays": torch.zeros(N_PHASES, dtype=torch.int64, device=dev),
+        "rays": counters[:N_PHASES],
+        "steps": counters[N_PHASES:2 * N_PHASES],
+        "slots": counters[2 * N_PHASES:],
     }
     geometry = tables.geometry()
     n_slices = int(noise.shape[0])
@@ -575,7 +596,7 @@ def render_sample_cuda(
             out["albedo"].data_ptr(),
             out["depth"].data_ptr(),
             out["node"].data_ptr(),
-            out["rays"].data_ptr(),
+            counters.data_ptr(),
             stream,
         )
     if err != 0:
@@ -585,6 +606,40 @@ def render_sample_cuda(
 
 
 render_sample_cuda.launches = 0
+
+
+def kernel_info() -> Dict[str, int]:
+    """The kernel's resources (building the kernels if needed):
+    registers, local-memory bytes and spill bytes a thread, static
+    shared bytes a block, resident blocks and warps per SM."""
+    from . import _build
+
+    res = (ctypes.c_int * 5)()
+    err = _build.load().vt_trace_info(ctypes.addressof(res))
+    if err != 0:
+        raise RuntimeError(f"trace kernel query failed: cudaError {err}")
+    regs, local, shared, per_sm, threads = list(res)
+    return {"registers": regs, "local_bytes": local,
+            "spill_bytes": _spill_bytes(), "shared_bytes": shared,
+            "blocks_per_sm": per_sm, "warps_per_sm": per_sm * threads // 32}
+
+
+def _spill_bytes() -> int:
+    """The kernel's spill stores plus spill loads (bytes) from ptxas's
+    report in the build log.  Its local memory (``local_bytes``) also
+    holds the stack frame of the accurate cosf/sinf's large-argument
+    path, which is not a spill."""
+    from . import _build
+
+    lines = _build.build_log().splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and "trace_kernel" in line:
+            for follow in lines[i + 1:i + 4]:
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", follow)
+                if m:
+                    return int(m.group(1)) + int(m.group(2))
+    raise RuntimeError("no ptxas report for trace_kernel in the build log")
 
 
 def render_sample(
