@@ -9,7 +9,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
    scene-build library loaded.
 1. build: compiles voxtracer_torch/csrc/*.cu with nvcc (sm_90a); the
    trace kernel's registers, spills, shared bytes and resident warps
-   per SM.
+   per SM; ptxas's registers, spills and static shared bytes of each
+   denoise instance (r = 1-8, and 0: the radius at run time) and the
+   dynamic shared bytes of its tile at r in {1, 2, 4, 8}.
 2. golden: the trace kernel against tests/golden/oracle_8x8x8_32.npz
    (the numpy oracle's pinned output) at the parity bar.
 3. plain: the trace kernel against its plain torch version, both on the
@@ -30,7 +32,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
    degree whip pan, with kernel and plain times.
 6. denoise: the denoise kernel against its plain version at 1920x1080
    on the dolly frame, r in {1, 2, 4, 8}, with kernel and plain times
-   per radius (the cost curve).
+   per radius, and on a ragged 333x187 crop of it at r in {1, ..., 8,
+   12}: values beyond the bar and values that differ at all.  Then the
+   kernel alone (``voxtracer_torch.app.denoisebench``) at 1920x1080 and
+   3840x2160, r in {1, 2, 4, 8}, on random and on uniform planes: time,
+   bound and share (the cost curve).
 7. config 4 (``BASELINE.json``): monu9 1920x1080 on the dolly path,
    denoise r=2 — 3 warm-up frames, 3 bursts of 12 frames continuing
    along the path so that every timed frame moves.  Launch counts:
@@ -58,9 +64,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
 
 Then checks that no module of the JAX package (``voxtracer``), JAX or
 Triton was imported, prints the per-kernel JSON line (each kernel's
-launches, error, times, bound, launches per frame of each config that
-ran it, and the time of one PyTorch call computing the same function,
-where there is one), then the device line last.
+launches, error, times, bound and share of it, launches per frame of
+each config that ran it, and the time of one PyTorch call computing the
+same function, where there is one), then the device line last.
 
 Bounds (``bound_ms``): the larger of the bytes the function must move
 (each input read once, each output written once) over 3.35 TB/s and
@@ -69,7 +75,8 @@ over 67 TFLOP/s, or, for the integer and control work of the trace and
 stall kernels, lane operations over the issue rate, 33.5 T a second
 (132 SMs x 4 schedulers x 32 lanes x 1.98 GHz).  The trace's operations
 are counted from the function's definition over this run's counted
-steps and rays (``voxtracer_torch.app.tracebench``).
+steps and rays (``voxtracer_torch.app.tracebench``), the denoise's over
+the stencil's in-frame taps (``voxtracer_torch.app.denoisebench``).
 """
 
 import contextlib
@@ -77,6 +84,7 @@ import io
 import itertools
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -88,20 +96,16 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
-from voxtracer_torch.app import tracebench  # noqa: E402
+from voxtracer_torch.app import denoisebench, tracebench  # noqa: E402
+from voxtracer_torch.app.denoisebench import FP32_FLOPS_PER_S  # noqa: E402
 from voxtracer_torch.app.tracebench import LANE_OPS_PER_S, bound  # noqa: E402
 
 WIDTH, HEIGHT = 1280, 720
 WARMUP, BURSTS, FRAMES = 3, 3, 12
 BENCH_POS, BENCH_DIR = tracebench.BENCH_POS, tracebench.BENCH_DIR
 
-FP32_FLOPS_PER_S = 67e12  # H100 SXM, NVIDIA's data sheet, at 700 W
-# float32 operations of the denoise kernel (csrc/denoise.cu): per tap
-# of the stencil and per pixel around it; of the temporal kernel
-# (csrc/temporal.cu) per pixel; of the resample kernel per pixel and
-# plane.
-DENOISE_FLOPS_PER_TAP = 39
-DENOISE_FLOPS_PER_PX = 45
+# float32 operations of the temporal kernel (csrc/temporal.cu) per
+# pixel; of the resample kernel per pixel and plane.
 TEMPORAL_FLOPS_PER_PX = 200
 RESAMPLE_FLOPS_PER_PX_PLANE = 9
 
@@ -157,6 +161,38 @@ def phase_build():
            f"a block, {info['blocks_per_sm']} blocks = "
            f"{info['warps_per_sm']} warps resident per SM")
     assert info["spill_bytes"] == 0 and info["warps_per_sm"] >= 24, info
+    from voxtracer_torch.ops import denoise
+
+    report = denoise_instances(_build.build_log())
+    say(1, "denoise instances (registers, spill bytes, static shared bytes): "
+           + ", ".join(f"r={r or 'run time'} {v}"
+                       for r, v in sorted(report.items())))
+    say(1, "denoise tile, dynamic shared bytes a block: " + ", ".join(
+        f"r={r} {denoise.tile_plan(1080, 1920, r).shared_bytes}"
+        for r in (1, 2, 4, 8)))
+    assert sorted(report) == list(range(denoise.STATIC_RADII + 1)), report
+
+
+def denoise_instances(log):
+    """ptxas's report of each instance of the denoise kernel in the
+    build log, by radius (0: the radius at run time): registers, spill
+    bytes (stores + loads) and static shared bytes."""
+    lines = log.splitlines()
+    res = {}
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '\S*denoise_kernelILi(\d+)E",
+                      line)
+        if not m:
+            continue
+        text = " ".join(lines[i + 1:i + 4])
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          text)
+        smem = re.search(r"(\d+) bytes smem", text)
+        res[int(m.group(1))] = (
+            int(re.search(r"Used (\d+) registers", text).group(1)),
+            int(spill.group(1)) + int(spill.group(2)),
+            int(smem.group(1)) if smem else 0)
+    return res
 
 
 def phase_golden():
@@ -392,17 +428,6 @@ def frame_kernels():
     }
 
 
-def denoise_bound(h, w, radius):
-    """(bound_ms, bound_by) of the denoise kernel: 11 planes read and 3
-    written; its float32 operations over the stencil's in-frame taps."""
-    def taps(n):  # in-frame offsets summed over the positions of an axis
-        return sum(min(i + radius, n - 1) - max(i - radius, 0) + 1
-                   for i in range(n))
-
-    flops = DENOISE_FLOPS_PER_TAP * taps(h) * taps(w) + DENOISE_FLOPS_PER_PX * h * w
-    return bound(56 * h * w, flops, FP32_FLOPS_PER_S)
-
-
 def phase_trace_sizes(smi):
     """The trace kernel alone at three frame sizes (blue noise, frame 1):
     time, steps per phase, SIMT efficiency and share of its bound."""
@@ -483,9 +508,26 @@ def phase_temporal(smi):
     return max_err, dolly, poses
 
 
+def compare_denoise(args):
+    """Kernel and plain version on the same inputs: the kernel's output,
+    the plain one, the count of values beyond the bar and of values
+    that differ at all."""
+    from voxtracer_torch.ops import denoise
+
+    k = denoise.denoise_cuda(*args)
+    p = denoise.denoise_plain(*args)
+    torch.cuda.synchronize()
+    # expf/logf may round differently from torch's: 1e-6 absolute plus
+    # 1e-6 relative
+    n_far = int(((k - p).abs() > 1e-6 + 1e-6 * p.abs()).sum())
+    return k, p, n_far, int((k != p).sum())
+
+
 def phase_denoise(smi, dolly):
-    """Kernel vs plain at 1080p on the dolly frame, r in {1, 2, 4, 8}.
-    Returns the max abs error."""
+    """Kernel vs plain at 1080p on the dolly frame, r in {1, 2, 4, 8},
+    and on a ragged 333x187 crop of it at r in {1, ..., 8, 12}; then
+    the kernel alone through denoisebench at 1080p and 4K.  Returns the
+    max abs error."""
     from voxtracer_torch.engine.params import DenoiseParams, pack_denoise_params
     from voxtracer_torch.ops import denoise
 
@@ -495,22 +537,41 @@ def phase_denoise(smi, dolly):
     for radius in (1, 2, 4, 8):
         args = (blended, g["normal"], g["depth"], g["albedo"], g["node"],
                 pack_denoise_params(cam.rows(w, h), DenoiseParams()), radius)
-        k = denoise.denoise_cuda(*args)
-        p = denoise.denoise_plain(*args)
-        torch.cuda.synchronize()
-        # expf/logf may round differently from torch's: 1e-6 absolute
-        # plus 1e-6 relative
-        err = (k - p).abs()
-        n_far = int((err > 1e-6 + 1e-6 * p.abs()).sum())
+        k, p, n_far, n_diff = compare_denoise(args)
+        err = float((k - p).abs().max())
         finite = bool(torch.isfinite(p).all())
         k_ms = cuda_time(lambda: denoise.denoise_cuda(*args), 10)
         p_ms = cuda_time(lambda: denoise.denoise_plain(*args), 1)
-        say(6, f"denoise r={radius} {w}x{h}: max abs err "
-               f"{float(err.max()):g}, values beyond 1e-6 abs+rel {n_far}, "
+        say(6, f"denoise r={radius} {w}x{h}: max abs err {err:g}, values "
+               f"beyond 1e-6 abs+rel {n_far}, values differing {n_diff}, "
                f"plain finite {finite}; kernel {k_ms:.4f} ms, plain "
                f"{p_ms:.2f} ms [{smi}]")
         assert n_far == 0 and finite
-        max_err = max(max_err, float(err.max()))
+        max_err = max(max_err, err)
+    cw, ch = 333, 187  # no multiple of the kernel's 32x32 tile
+    crop = [t[..., :ch, :cw].contiguous()
+            for t in (blended, g["normal"], g["depth"], g["albedo"], g["node"])]
+    crop_rows = []
+    for radius in (*range(1, 9), 12):
+        args = (*crop, pack_denoise_params(cam.rows(cw, ch), DenoiseParams()),
+                radius)
+        k, p, n_far, n_diff = compare_denoise(args)
+        err = float((k - p).abs().max())
+        crop_rows.append(f"r={radius} {err:g}/{n_far}/{n_diff}")
+        assert n_far == 0 and bool(torch.isfinite(p).all()), radius
+        max_err = max(max_err, err)
+    say(6, f"denoise {cw}x{ch} crop (max abs err / values beyond the bar / "
+           f"values differing): {', '.join(crop_rows)} [{smi}]")
+    # random planes, and uniform ones (every tap between equal elements,
+    # as between sky pixels): the kernel's time should not differ
+    for planes in ("random", "uniform"):
+        rc, rows = run_captured(6, denoisebench.main, ["--planes", planes])
+        assert rc == 0 and len(rows) == 8, rows
+        assert all(r["device"] == smi and r["share"] > 0 for r in rows), rows
+        say(6, f"denoise kernel alone, {planes} planes (ms, share of "
+               "bound): " + ", ".join(
+                   f"{r['size']} r={r['radius']} {r['ms_per_call']:.4f} "
+                   f"{r['share']:.3f}" for r in rows))
     return max_err
 
 
@@ -639,14 +700,12 @@ def drive_path(phase, label, scene_name, w, h, path_name, radius, warmup,
     entries["temporal"]["bound_ms"], entries["temporal"]["bound_by"] = bound(
         64 * h * w, TEMPORAL_FLOPS_PER_PX * h * w, FP32_FLOPS_PER_S)
     if radius:
-        kd = denoise.denoise_cuda(*dargs)
-        pd = denoise.denoise_plain(*dargs)
-        torch.cuda.synchronize()
+        kd, pd, n_far, n_diff = compare_denoise(dargs)
         derr = (kd - pd).abs()
-        n_far = int((derr > 1e-6 + 1e-6 * pd.abs()).sum())
         assert n_far == 0 and bool(torch.isfinite(pd).all()), n_far
         checks += (f"; denoise r={radius} max err {float(derr.max()):g}, "
-                   f"values beyond 1e-6 abs+rel {n_far}")
+                   f"values beyond 1e-6 abs+rel {n_far}, values differing "
+                   f"{n_diff}")
         stage["denoise"] = cuda_time(lambda: denoise.denoise_cuda(*dargs), 20)
         stage["denoise plain"] = cuda_time(
             lambda: denoise.denoise_plain(*dargs), 1)
@@ -654,7 +713,8 @@ def drive_path(phase, label, scene_name, w, h, path_name, radius, warmup,
                               "ms": stage["denoise"],
                               "plain_ms": stage["denoise plain"]}
         (entries["denoise"]["bound_ms"],
-         entries["denoise"]["bound_by"]) = denoise_bound(h, w, radius)
+         entries["denoise"]["bound_by"]) = denoisebench.denoise_bound(
+             h, w, radius)
     say(phase, "kernels alone on the next frame's inputs: "
                + ", ".join(f"{k} {v:.4f} ms" for k, v in stage.items())
                + f"; {checks} [{smi}]")
@@ -982,6 +1042,7 @@ def main():
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name],
          **{k: entries[name][k] for k in keys},
+         "share": entries[name]["bound_ms"] / entries[name]["ms"],
          **{k: v for k, v in entries[name].items() if k not in keys}}
         for name, (src, rep) in sources.items()
     ]

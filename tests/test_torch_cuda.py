@@ -15,7 +15,8 @@ by more than 1e-3 (0 measured on an H100 with torch 2.11 / CUDA 12.8).
 Temporal: validity and next blend bit-exact, colour within 1e-6 (no
 transcendental).
 Denoise: 1e-6 absolute plus 1e-6 relative (expf/logf may round
-differently from torch's).  Resample: bit-equal, NaN where a coordinate
+differently from torch's), at every template instance of the kernel and
+its runtime-radius instance, on sizes that are no multiple of its tile.  Resample: bit-equal, NaN where a coordinate
 is not finite (no transcendental).  Stall microbenchmark: integer,
 equal.
 """
@@ -228,6 +229,79 @@ def test_denoise_kernel_matches_plain(cuda, radius):
     torch.cuda.synchronize()
     assert torch.isfinite(p).all()
     assert ((k - p).abs() <= 1e-6 + 1e-6 * p.abs()).all()
+
+
+def _denoise_planes(h, w, device, seed=0):
+    """Random G-buffer planes with sky pixels (depth -1, normal 2^30,
+    the miss node) and nodes whose top bit is set (node >> 24 < 0)."""
+    rng = np.random.default_rng(seed)
+    n = rng.standard_normal((3, h, w)).astype(np.float32)
+    n /= np.linalg.norm(n, axis=0, keepdims=True)
+    depth = (rng.random((h, w), np.float32) * 10 + 1).astype(np.float32)
+    node = (rng.integers(0, 3, (h, w)) << 24).astype(np.int32)
+    sky = rng.random((h, w)) < 0.2
+    depth[sky] = -1.0
+    n[:, sky] = np.float32(1 << 30)
+    node[sky] = 0xFFFFFF
+    leaf = ~sky & (rng.random((h, w)) < 0.2)
+    node[leaf] = np.int32(-(1 << 31)) | node[leaf]
+    planes = (rng.random((3, h, w), np.float32), n, depth,
+              rng.random((3, h, w), np.float32), node)
+    return tuple(torch.from_numpy(a).to(device) for a in planes)
+
+
+def _assert_denoise_matches_plain(h, w, radius, device):
+    planes = _denoise_planes(h, w, device, seed=radius)
+    params = pack_denoise_params(MENGER.rows(w, h), DenoiseParams(
+        sigma_distance=1.2, sigma_range=0.7, albedo_factor=0.35))
+    before = denoise.denoise_cuda.launches
+    k = denoise.denoise_cuda(*planes, params, radius)
+    p = denoise.denoise_plain(*planes, params, radius)
+    torch.cuda.synchronize()
+    assert denoise.denoise_cuda.launches == before + 1
+    assert torch.isfinite(p).all()
+    assert ((k - p).abs() <= 1e-6 + 1e-6 * p.abs()).all()
+
+
+@pytest.mark.parametrize("radius", [*range(1, 9), 12])
+@pytest.mark.parametrize("h, w", [(1, 1), (3, 5), (19, 37), (187, 333),
+                                  (1080, 1920), (2160, 3840)])
+def test_denoise_kernel_ragged_sizes(cuda, h, w, radius):
+    """Sizes that are no multiple of the kernel's 32x32 tile, at every
+    template instance and at r = 12 (the runtime-radius instance), with
+    misses and negative node ids."""
+    _assert_denoise_matches_plain(h, w, radius, cuda)
+
+
+def _interior_blocks(h, w, radius):
+    """Blocks whose haloed tile lies inside the frame (no bounds test)."""
+    plan = denoise.tile_plan(h, w, radius)
+    tile_w = plan.block[0]
+    tile_h = plan.block[1] * plan.rows_per_thread
+    return sum(bx * tile_w >= radius and by * tile_h >= radius
+               and (bx + 1) * tile_w + radius <= w
+               and (by + 1) * tile_h + radius <= h
+               for bx in range(plan.grid[0]) for by in range(plan.grid[1]))
+
+
+@pytest.mark.parametrize("h, w, radius, interior", [
+    (1024, 1024, 2, 900), (24, 40, 8, 0), (64, 64, 26, 0)],
+    ids=["interior", "border_only", "largest_radius"])
+def test_denoise_kernel_interior_and_border_blocks(cuda, h, w, radius,
+                                                   interior):
+    """A frame of mostly interior blocks, one of border blocks only, and
+    the largest radius whose tile fits a block's shared memory."""
+    assert _interior_blocks(h, w, radius) == interior
+    _assert_denoise_matches_plain(h, w, radius, cuda)
+
+
+def test_denoise_kernel_refuses_a_tile_beyond_shared_memory(cuda):
+    planes = _denoise_planes(40, 40, cuda)
+    params = pack_denoise_params(MENGER.rows(40, 40), DenoiseParams())
+    before = denoise.denoise_cuda.launches
+    with pytest.raises(ValueError, match="shared bytes"):
+        denoise.denoise_cuda(*planes, params, 27)
+    assert denoise.denoise_cuda.launches == before
 
 
 def test_renderer_on_cuda_runs_every_kernel_on_a_moving_path(cuda):

@@ -130,3 +130,64 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA kernel"):
         denoise.denoise_cuda(*(torch.from_numpy(v) for v in x.values()),
                              pack_denoise_params(CAM, DenoiseParams()), 2)
+
+
+@pytest.mark.parametrize("sigma_distance", [1.5, 1.2, 0.3, 7.0])
+@pytest.mark.parametrize("radius", [*range(1, 9), 12])
+def test_factor_dist_table_is_the_plain_per_tap_value(radius, sigma_distance):
+    """The kernel's host table holds, bit for bit, the distance term
+    ``denoise_plain`` computes at each tap, dy outer, dx inner."""
+    params = pack_denoise_params(
+        CAM, DenoiseParams(sigma_distance=sigma_distance))
+    table = denoise.factor_dist_table(radius, params[12])
+    sigma_d2 = denoise._sigma2(float(params[12]))
+    want = [float(np.float32(dx * dx + dy * dy) / np.float32(sigma_d2))
+            for dy in range(-radius, radius + 1)
+            for dx in range(-radius, radius + 1)]
+    assert table.dtype == np.float32 and table.flags.c_contiguous
+    assert table.tolist() == want
+
+
+@pytest.mark.parametrize("radius", [1, 2, 8, 12])
+@pytest.mark.parametrize("h, w", [(1, 1), (3, 5), (19, 37), (187, 333),
+                                  (1080, 1920), (2160, 3840)])
+def test_tile_plan_covers_every_pixel_once(h, w, radius):
+    """Block (bx, by), thread (tx, ty) and output j of the plan compute
+    pixel (bx * 32 + tx, by * 32 + ty * 4 + j) as csrc/denoise.cu does:
+    the pixels inside the frame are each computed exactly once."""
+    plan = denoise.tile_plan(h, w, radius)
+    bw, bh = plan.block
+    k = plan.rows_per_thread
+    gx, gy = plan.grid
+    xs = (np.arange(gx)[:, None] * bw + np.arange(bw)[None, :]).reshape(-1)
+    ys = (np.arange(gy)[:, None, None] * bh * k
+          + np.arange(bh)[None, :, None] * k
+          + np.arange(k)[None, None, :]).reshape(-1)
+    assert len(set(xs.tolist())) == xs.size
+    assert len(set(ys.tolist())) == ys.size
+    assert set(range(w)) <= set(xs.tolist()) and xs.max() < w + bw
+    assert set(range(h)) <= set(ys.tolist()) and ys.max() < h + bh * k
+    assert plan.instance == (radius if radius <= 8 else 0)
+
+
+@pytest.mark.parametrize("radius", range(1, 9))
+def test_tile_plan_fits_shared_memory(radius):
+    plan = denoise.tile_plan(1080, 1920, radius)
+    tile = 32 + 2 * radius
+    assert plan.shared_bytes == 8 * 4 * tile * tile
+    assert plan.shared_bytes <= denoise.MAX_SHARED_BYTES == 232_448
+
+
+def test_cuda_wrapper_raises_where_the_tile_exceeds_shared_memory():
+    """r = 26 is the largest radius whose haloed tile fits; beyond it the
+    wrapper raises before it looks for a card (no fallback)."""
+    assert denoise.tile_plan(64, 64, 26).shared_bytes <= 232_448
+    assert denoise.tile_plan(64, 64, 27).shared_bytes > 232_448
+    x = _inputs()
+    with pytest.raises(ValueError, match="shared bytes"):
+        denoise.denoise_cuda(*(torch.from_numpy(v) for v in x.values()),
+                             pack_denoise_params(CAM, DenoiseParams()), 27)
+    # the dispatcher's CPU path, the plain version, has no such limit
+    assert denoise.denoise(*(torch.from_numpy(v) for v in x.values()),
+                           pack_denoise_params(CAM, DenoiseParams()),
+                           27).shape == (3, H, W)

@@ -131,9 +131,10 @@ def load() -> ctypes.CDLL:
     #   stream) -> cudaError_t
     lib.vt_temporal_launch.argtypes = [p] * 7 + [i] * 2 + [p] * 3
     lib.vt_temporal_launch.restype = ctypes.c_int
-    # vt_denoise_launch(params, colors, normal, depth, albedo, node,
-    #   height, width, radius, out, stream) -> cudaError_t
-    lib.vt_denoise_launch.argtypes = [p] * 6 + [i] * 3 + [p] * 2
+    # vt_denoise_launch(params, fdist, colors, normal, depth, albedo,
+    #   node, height, width, radius, instance, block_x, block_y, rows,
+    #   grid_x, grid_y, shared, out, stream) -> cudaError_t
+    lib.vt_denoise_launch.argtypes = [p] * 7 + [i] * 10 + [p] * 2
     lib.vt_denoise_launch.restype = ctypes.c_int
     # vt_resample_launch(hist, px_f, py_f, channels, height, width,
     #   sampled, ok, stream) -> cudaError_t

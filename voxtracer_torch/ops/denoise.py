@@ -11,13 +11,17 @@ radius r >= 1 a (2r+1)^2 cross-bilateral stencil runs first:
   ``out * (1 - f + f * albedo)`` (``denoise_pallas.py:228-237``).  Planar
   (3, H, W).  The CPU path and the reference for the kernel.
 * :func:`denoise_cuda` — the hand-written kernel ``csrc/denoise.cu``,
-  which replaces the Pallas kernel ``denoise_pallas._make_kernel``.
+  which replaces the Pallas kernel ``denoise_pallas._make_kernel``; its
+  launch geometry is :func:`tile_plan`'s and its ``factor_dist`` values
+  :func:`factor_dist_table`'s.
 * :func:`denoise` — radius 0, or one of the two by the tensors' device.
 
 All read the (16,) vector of ``engine.params.pack_denoise_params``.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -125,6 +129,49 @@ def denoise_plain(
     return _modulate(color_sum / norm_sum[None], albedo, P[14])
 
 
+# csrc/denoise.cu's geometry: 32x8 threads, each computing 4 outputs
+# down its column, so a block owns a 32x32 tile; the tile and an r-wide
+# halo sit in shared memory as 8 float32 planes.  Radii 1-8 have a
+# template instance of their own; larger radii run instance 0, which
+# takes the radius at run time.
+BLOCK = (32, 8)
+ROWS_PER_THREAD = 4
+STATIC_RADII = 8
+TILE_PLANES = 8
+MAX_SHARED_BYTES = 232_448  # a block's shared memory on an H100
+
+
+class TilePlan(NamedTuple):
+    instance: int
+    block: tuple
+    grid: tuple
+    rows_per_thread: int
+    shared_bytes: int
+
+
+def tile_plan(height: int, width: int, radius: int) -> TilePlan:
+    """The denoise kernel's launch for a ``height`` x ``width`` frame:
+    template instance, block, grid, outputs per thread and dynamic
+    shared bytes (the haloed tile's planes)."""
+    tile_w, tile_h = BLOCK[0], BLOCK[1] * ROWS_PER_THREAD
+    return TilePlan(
+        instance=radius if radius <= STATIC_RADII else 0,
+        block=BLOCK,
+        grid=(-(-width // tile_w), -(-height // tile_h)),
+        rows_per_thread=ROWS_PER_THREAD,
+        shared_bytes=TILE_PLANES * 4 * (tile_w + 2 * radius)
+        * (tile_h + 2 * radius),
+    )
+
+
+def factor_dist_table(radius: int, sigma_distance: float) -> np.ndarray:
+    """(2r+1)^2 float32 ``factor_dist`` values, dy outer, dx inner: the
+    plain version's per-tap ``float32(dx^2 + dy^2) / float32(sigma_d2)``."""
+    d = np.arange(-radius, radius + 1)
+    sq = (d[:, None] * d[:, None] + d[None, :] * d[None, :]).astype(np.float32)
+    return (sq / np.float32(_sigma2(sigma_distance))).reshape(-1)
+
+
 def denoise_cuda(
     colors: torch.Tensor,
     normal: torch.Tensor,
@@ -136,10 +183,18 @@ def denoise_cuda(
 ) -> torch.Tensor:
     """The same stencil and modulate from the hand-written CUDA kernel
     (csrc/denoise.cu).  Launches on the current stream and does not
-    synchronise.  Raises if an input is not what the kernel takes or the
-    launch is refused."""
+    synchronise.  Raises if an input is not what the kernel takes, the
+    radius's tile does not fit a block's shared memory, or the launch is
+    refused."""
     _check_inputs(colors, normal, depth, albedo, node, radius)
     params = check_params(params, DENOISE_PARAMS_LEN)
+    height, width = depth.shape
+    plan = tile_plan(height, width, int(radius))
+    if plan.shared_bytes > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"radius {radius}: its haloed tile needs {plan.shared_bytes} "
+            f"shared bytes, a block has {MAX_SHARED_BYTES}"
+        )
     if depth.device.type != "cuda":
         raise ValueError(f"CUDA kernel given tensors on {depth.device}")
     ins = (colors, normal, depth, albedo, node)
@@ -148,16 +203,22 @@ def denoise_cuda(
     from . import _build
 
     launch = _build.load().vt_denoise_launch
-    height, width = depth.shape
+    fdist = factor_dist_table(int(radius), params[12])
     out = torch.empty_like(colors)
     with torch.cuda.device(depth.device):
         stream = torch.cuda.current_stream(depth.device).cuda_stream
         err = launch(
             params.ctypes.data,
+            fdist.ctypes.data,
             *(t.data_ptr() for t in ins),
             height,
             width,
             int(radius),
+            plan.instance,
+            *plan.block,
+            plan.rows_per_thread,
+            *plan.grid,
+            plan.shared_bytes,
             out.data_ptr(),
             stream,
         )
