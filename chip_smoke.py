@@ -33,8 +33,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
 6. denoise: the denoise kernel against its plain version at 1920x1080
    on the dolly frame, r in {1, 2, 4, 8}, with kernel and plain times
    per radius, and on a ragged 333x187 crop of it at r in {1, ..., 8,
-   12}: values beyond the bar and values that differ at all.  Then the
-   kernel alone (``voxtracer_torch.app.denoisebench``) at 1920x1080 and
+   12} and, through the instance for radii whose tile does not fit
+   shared memory, {27, 32}: values beyond the bar and values that differ
+   at all.  Then the kernel alone (``voxtracer_torch.app.denoisebench``) at 1920x1080 and
    3840x2160, r in {1, 2, 4, 8}, on random and on uniform planes: time,
    bound and share (the cost curve).
 7. config 4 (``BASELINE.json``): monu9 1920x1080 on the dolly path,
@@ -58,15 +59,30 @@ Phases (each prints one line; any failure raises and exits non-zero):
     longest chains), at 64 trips: equal; then the CLI's default matrix
     at its default trips (cycles per trip, stall cycles per handoff),
     and ser:1 against its plain version at those trips: equal.
-12. ``voxtracer_torch.app.bench.main([])``: BASELINE configs 1-6 at
+12. the offline export path, at full size: config 2 through
+    ``Renderer.render_burst``, configs 3 and 4 through
+    ``Renderer.render_sequence``.  Two renderers from equal state, one
+    driven by N ``render()`` calls, one by the sequence (each frame a
+    replay of a captured CUDA graph): frames, final state and counters
+    equal, the launch counters (zeroed before, read after) equal to the
+    loop's, replays included.  Then ms/frame of the sequence against the
+    per-frame loop, in turns (loop, sequence, sequence, loop), 3 warm
+    frames, bursts of 12, CUDA events.  And a mixed path (still, still,
+    pan, pan, still, still, pan) at 320x180 for the segment split.
+13. ``voxtracer_torch.app.cli.main`` on the card: menger 1280x720,
+    ``--batch 8 --frames 20 --video-dir --save-snapshot``, then
+    ``--resume --batch 4 --frames 4``: 20 + 4 PNGs, and the resumed
+    final image equals an uninterrupted 24-frame run's.
+14. ``voxtracer_torch.app.bench.main([])``: BASELINE configs 1-6 at
     their full sizes; every JSON line printed; a non-zero return, a
     config's error line or a kernel never launched fails the run.
 
 Then checks that no module of the JAX package (``voxtracer``), JAX or
 Triton was imported, prints the per-kernel JSON line (each kernel's
 launches, error, times, bound and share of it, launches per frame of
-each config that ran it, and the time of one PyTorch call computing the
-same function, where there is one), then the device line last.
+each config that ran it, its launches on phase 12's sequences, and the
+time of one PyTorch call computing the same function, where there is
+one), then the device line last.
 
 Bounds (``bound_ms``): the larger of the bytes the function must move
 (each input read once, each output written once) over 3.35 TB/s and
@@ -88,6 +104,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -108,6 +125,9 @@ BENCH_POS, BENCH_DIR = tracebench.BENCH_POS, tracebench.BENCH_DIR
 # pixel; of the resample kernel per pixel and plane.
 TEMPORAL_FLOPS_PER_PX = 200
 RESAMPLE_FLOPS_PER_PX_PLANE = 9
+
+# the kernels that render_sequence / render_burst replay
+SEQUENCE_KERNELS = ("trace", "temporal", "denoise")
 
 
 def say(phase, msg):
@@ -180,8 +200,9 @@ def denoise_instances(log):
     lines = log.splitlines()
     res = {}
     for i, line in enumerate(lines):
-        m = re.search(r"Compiling entry function '\S*denoise_kernelILi(\d+)E",
-                      line)
+        # the by-value entry's instances, denoise_kernel<R, false>
+        m = re.search(
+            r"Compiling entry function '\S*denoise_kernelILi(\d+)ELb0E", line)
         if not m:
             continue
         text = " ".join(lines[i + 1:i + 4])
@@ -352,7 +373,7 @@ def phase_main(smi):
     launches = counts["trace"]
     frames = WARMUP + BURSTS * FRAMES
     assert counts == {"trace": frames, "temporal": 0, "denoise": 0,
-                      "resample": 0}, counts
+                      "resample": 0, "stall": 0}, counts
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
 
     image = out["image"].cpu().numpy()
@@ -417,7 +438,10 @@ def phase_main(smi):
 
 
 def frame_kernels():
-    """The launch-counting wrappers of the frame's kernels, by name."""
+    """The launch-counting wrappers of the port's five kernels, by
+    name: every path zeroes and reads them all, those it must not launch
+    too."""
+    from voxtracer_torch.app import stallbench
     from voxtracer_torch.ops import denoise, reproject, temporal, trace
 
     return {
@@ -425,6 +449,7 @@ def frame_kernels():
         "temporal": temporal.temporal_blend_reproject_cuda,
         "denoise": denoise.denoise_cuda,
         "resample": reproject.resample_cuda,
+        "stall": stallbench.run_cuda,
     }
 
 
@@ -525,7 +550,7 @@ def compare_denoise(args):
 
 def phase_denoise(smi, dolly):
     """Kernel vs plain at 1080p on the dolly frame, r in {1, 2, 4, 8},
-    and on a ragged 333x187 crop of it at r in {1, ..., 8, 12}; then
+    and on a ragged 333x187 crop of it at r in {1, ..., 8, 12, 27, 32}; then
     the kernel alone through denoisebench at 1080p and 4K.  Returns the
     max abs error."""
     from voxtracer_torch.engine.params import DenoiseParams, pack_denoise_params
@@ -552,7 +577,8 @@ def phase_denoise(smi, dolly):
     crop = [t[..., :ch, :cw].contiguous()
             for t in (blended, g["normal"], g["depth"], g["albedo"], g["node"])]
     crop_rows = []
-    for radius in (*range(1, 9), 12):
+    # 27 and 32: above the largest radius whose haloed tile fits
+    for radius in (*range(1, 9), 12, 27, 32):
         args = (*crop, pack_denoise_params(cam.rows(cw, ch), DenoiseParams()),
                 radius)
         k, p, n_far, n_diff = compare_denoise(args)
@@ -624,7 +650,7 @@ def drive_path(phase, label, scene_name, w, h, path_name, radius, warmup,
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     assert moving == n - 1, f"{moving} moving frames of {n}"
     want = {"trace": n, "temporal": moving, "denoise": n if radius else 0,
-            "resample": 0}
+            "resample": 0, "stall": 0}
     assert launches == want, f"launches {launches} != {want}"
 
     image = out["image"].cpu().numpy()
@@ -719,6 +745,8 @@ def drive_path(phase, label, scene_name, w, h, path_name, radius, warmup,
                + ", ".join(f"{k} {v:.4f} ms" for k, v in stage.items())
                + f"; {checks} [{smi}]")
 
+    compare_row_entries(phase, r, rows, n + 1, g, radius, smi)
+
     # 2 frames with every stage plain, then 2 kernel frames from the
     # same state along the same poses: their images must agree
     state = {key: (v.clone() if torch.is_tensor(v) else v)
@@ -746,6 +774,230 @@ def drive_path(phase, label, scene_name, w, h, path_name, radius, warmup,
                f"of {w * h} [{smi}]")
     assert n_px <= 0.005 * w * h
     return {name: k / n for name, k in launches.items()}, launches, entries
+
+
+def compare_row_entries(phase, r, cam_rows, frame, g, radius, smi):
+    """On the next frame of renderer ``r`` (camera rows ``cam_rows``,
+    G-buffer ``g``, the accumulated history): each kernel's row-reading
+    entry against its by-value entry, and the row-reading still blend
+    and modulate against the forms reading Python numbers.  The row is
+    the second of two on the device."""
+    from voxtracer_torch.engine import params as P
+    from voxtracer_torch.ops import denoise, temporal, trace
+
+    h, w = g["depth"].shape
+    rows = P.pack_frame_rows(
+        [r.state["old_cam"], cam_rows], r.state["old_cam"], True, frame - 1,
+        r.render_params, r.temporal_params, r.denoise_params)
+    row = rows[1]
+    dev_rows = P.DeviceRow(torch.from_numpy(rows).cuda()[1], rows[0])
+    vec = {"trace": row[P.ROW_TRACE:P.ROW_FRAME],
+           "temporal": row[P.ROW_TEMPORAL:P.ROW_DENOISE],
+           "denoise": row[P.ROW_DENOISE:P.ROW_KEEP_SAMPLE]}
+    history = (r.state["accum_color"], r.state["accum_blend"],
+               r.state["old_depth"])
+    planes = (g["color"], g["normal"], g["depth"], *history)
+
+    def trace_entry(params, n):
+        return trace.render_sample_cuda(r.tables, params, r.noise, n, h, w)
+
+    def temporal_entry(params):
+        return temporal.temporal_blend_reproject_cuda(*planes, params)
+
+    by_row, by_value = trace_entry(dev_rows, None), trace_entry(vec["trace"],
+                                                                frame)
+    assert all(torch.equal(by_row[k], by_value[k]) for k in by_value)
+    assert torch.equal(by_value["node"], g["node"])
+    rc, rb = temporal_entry(dev_rows)
+    vc, vb = temporal_entry(vec["temporal"])
+    assert torch.equal(rc, vc) and torch.equal(rb, vb)
+    times = {
+        "trace": (cuda_time(lambda: trace_entry(dev_rows, None), 10),
+                  cuda_time(lambda: trace_entry(vec["trace"], frame), 10)),
+        "temporal": (cuda_time(lambda: temporal_entry(dev_rows), 20),
+                     cuda_time(lambda: temporal_entry(vec["temporal"]), 20)),
+    }
+    if radius:
+        def denoise_entry(params):
+            return denoise.denoise_cuda(vc, g["normal"], g["depth"],
+                                        g["albedo"], g["node"], params, radius)
+
+        assert torch.equal(denoise_entry(dev_rows),
+                           denoise_entry(vec["denoise"]))
+        times["denoise"] = (
+            cuda_time(lambda: denoise_entry(dev_rows), 20),
+            cuda_time(lambda: denoise_entry(vec["denoise"]), 20))
+    # the plain torch stages of a still frame and of r = 0
+    sc, sb = temporal.temporal_blend_still_row(*planes, dev_rows.row)
+    pc, pb = temporal.temporal_blend_still_planar(
+        *planes, cam_rows, r.state["old_cam"], r.temporal_params, True)
+    assert torch.equal(sc, pc) and torch.equal(sb, pb)
+    assert torch.equal(
+        denoise.modulate_row(vc, g["albedo"], dev_rows.row),
+        denoise._modulate(vc, g["albedo"], vec["denoise"][14]))
+    torch.cuda.synchronize()
+    say(phase, "row-reading entries == by-value entries (trace, temporal"
+               + (", denoise" if radius else "") + "), row-reading still "
+               "blend and modulate == the forms reading Python numbers; ms "
+               "by row / by value: " + ", ".join(
+                   f"{k} {a:.4f} / {b:.4f}" for k, (a, b) in times.items())
+               + f" [{smi}]")
+
+
+def phase_sequence(label, scene_name, w, h, path_name, radius, burst, smi,
+                   frames=FRAMES, timed=True):
+    """The offline export path against the per-frame loop: two
+    renderers from equal state, ``frames`` cameras of the path through
+    ``render()`` and through ``render_sequence`` (``render_burst`` where
+    ``burst``); frames, state, counters and launch counts equal.  Then
+    ms/frame of both in turns.  Returns the sequence's launch counts
+    and (ms/frame of the loop, of the sequence)."""
+    from voxtracer_torch.app import camera_paths
+    from voxtracer_torch.engine.pipeline import STATE_PLANES, Renderer
+    from voxtracer_torch.engine.scene import load_scene
+
+    kernels = frame_kernels()
+    scene = load_scene(scene_name)
+    if path_name == "mixed":
+        orbit = camera_paths.orbit(scene)
+        pose = [orbit(t / 30.0) for t in (0, 0, 1, 2, 2, 2, 3)]
+        path = lambda i: pose[i % len(pose)]  # noqa: E731
+    elif burst:
+        cam = camera_paths.PATHS[path_name](scene)(0.0)
+        path = lambda i: cam  # noqa: E731
+    else:
+        along = camera_paths.PATHS[path_name](scene)
+        path = lambda i: along(i / 30.0)  # noqa: E731
+    kw = dict(scene=scene, height=h, width=w, device="cuda",
+              denoise_radius=radius, lean=True)
+    loop, seq = Renderer(**kw), Renderer(**kw)
+    at = {id(loop): 0, id(seq): 0}  # each renderer's place on the path
+
+    def cams(r, n):
+        at[id(r)] += n
+        return [path(i) for i in range(at[id(r)] - n, at[id(r)])]
+
+    def run_loop(n):
+        return [loop.render(c)["image"] for c in cams(loop, n)]
+
+    def run_seq(n):
+        if burst:
+            return seq.render_burst(cams(seq, n)[0], n)
+        return seq.render_sequence(cams(seq, n))
+
+    def counted(fn, n):
+        for k in kernels.values():
+            k.launches = 0
+        out = fn(n)
+        return out, {name: k.launches for name, k in kernels.items()}
+
+    def same_state():
+        return (all(torch.equal(loop.state[k], seq.state[k])
+                    for k in STATE_PLANES)
+                and np.array_equal(loop.state["old_cam"],
+                                   seq.state["old_cam"])
+                and (loop.frame_number, loop.still_sample)
+                == (seq.frame_number, seq.still_sample))
+
+    # the first sequence captures its graphs (one eager frame before
+    # each); the second replays them and is the one whose launches are
+    # held against the loop's
+    want = run_loop(frames)
+    got = run_seq(frames)
+    assert torch.equal(got, want[-1] if burst else torch.stack(want))
+    assert same_state()
+    want, n_loop = counted(run_loop, frames)
+    got, n_seq = counted(run_seq, frames)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want[-1] if burst else torch.stack(want))
+    assert same_state(), (loop.frame_number, seq.frame_number,
+                          loop.still_sample, seq.still_sample)
+    assert n_seq == n_loop and n_seq["trace"] == frames, (n_seq, n_loop)
+    assert bool(n_seq["denoise"]) == bool(radius)
+    assert n_seq["resample"] == 0 and n_seq["stall"] == 0, n_seq
+    image = got if burst else got[-1]
+    assert image.shape == (h, w, 3) and image.dtype == torch.uint8
+    std = float(image.float().std())
+    assert std > 1.0, std
+    graphs = sorted(seq._runner.graphs)
+    say(12, f"{label} {w}x{h} {path_name} r={radius}: "
+            f"{'render_burst' if burst else 'render_sequence'} of {frames} "
+            f"frames == {frames} render() calls (frames, state, counters); "
+            f"graphs captured for reproject in {graphs}; launches of the "
+            f"replayed sequence {n_seq} == the loop's; image std {std:.1f}")
+    if not timed:
+        return n_seq, None
+    for fn in (run_loop, run_seq):
+        fn(WARMUP)
+    torch.cuda.synchronize()
+    ms = {"loop": [], "sequence": []}
+    for mode in ("loop", "sequence", "sequence", "loop"):
+        fn = run_loop if mode == "loop" else run_seq
+        for _ in range(BURSTS):
+            ms[mode].append(cuda_time(lambda: fn(frames), 1) / frames)
+    loop.render(path(at[id(loop)]))  # both still render after it
+    seq.render(path(at[id(seq)]))
+    # the sequence's host prologue: the cameras' rows, packed before the
+    # first replay
+    path_cams = [path(i) for i in range(frames)]
+    t0 = time.perf_counter()
+    for _ in range(20):
+        seq._pack_sequence(path_cams)
+    pack_us = (time.perf_counter() - t0) / 20 / frames * 1e6
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    say(12, f"{label}: ms/frame in bursts of {frames}, in turns (loop, "
+            "sequence, sequence, loop): loop "
+            + ", ".join(f"{t:.3f}" for t in ms["loop"]) + " (median "
+            f"{med['loop']:.3f}); sequence "
+            + ", ".join(f"{t:.3f}" for t in ms["sequence"]) + " (median "
+            f"{med['sequence']:.3f}); loop / sequence "
+            f"{med['loop'] / med['sequence']:.2f}; the host packs a "
+            f"sequence's rows in {pack_us:.1f} us a frame [{smi}]")
+    return n_seq, (med["loop"], med["sequence"])
+
+
+def phase_cli(smi):
+    """The CLI on the card: batches, every frame as a PNG, a snapshot,
+    a resumed run against an uninterrupted one."""
+    from voxtracer_torch.app import cli
+
+    base = ["--device", "cuda", "--scene", "menger", "--size",
+            f"{WIDTH}x{HEIGHT}",
+            "--camera-pos=" + ",".join(str(v) for v in BENCH_POS),
+            "--camera-dir=" + ",".join(str(v) for v in BENCH_DIR)]
+    with tempfile.TemporaryDirectory() as tmp:
+        def at(name):
+            return os.path.join(tmp, name)
+
+        t0 = time.perf_counter()
+        rc, _ = run_captured(13, cli.main, [
+            *base, "--batch", "8", "--frames", "20", "--video-dir",
+            at("frames"), "--save-snapshot", at("s.npz"), "--stats", "-o",
+            at("a.png")])
+        assert rc == 0
+        assert sorted(os.listdir(at("frames"))) == [
+            f"frame_{i:05d}.png" for i in range(20)]
+        rc, _ = run_captured(13, cli.main, [
+            *base, "--batch", "4", "--frames", "4", "--resume", at("s.npz"),
+            "--video-dir", at("frames"), "-o", at("b.png")])
+        assert rc == 0
+        assert sorted(os.listdir(at("frames"))) == [
+            f"frame_{i:05d}.png" for i in range(24)]
+        rc, _ = run_captured(13, cli.main, [
+            *base, "--frames", "24", "-o", at("whole.png")])
+        assert rc == 0
+
+        def read(name):
+            with open(at(name), "rb") as f:
+                return f.read()
+
+        assert read("b.png") == read("whole.png") != read("a.png")
+        assert read("b.png") == read(os.path.join("frames", "frame_00023.png"))
+        assert read("a.png") == read(os.path.join("frames", "frame_00019.png"))
+        say(13, "cli: --batch 8 --frames 20 --video-dir --save-snapshot, "
+                "then --resume --batch 4 --frames 4: 24 PNGs; the resumed "
+                "final image == an uninterrupted 24-frame run's; "
+                f"{time.perf_counter() - t0:.1f} s [{smi}]")
 
 
 def run_captured(phase, fn, argv):
@@ -942,8 +1194,7 @@ def phase_stallbench(smi):
         (256 * 128 + 2 * 32 * 128) * 4,
         default_trips * 4096 * 2 * 24, LANE_OPS_PER_S)
     return launches, {"max_abs_err": 0.0, "ms": ser1["ms"], "plain_ms": p_ms,
-                      "bound_ms": bound_ms, "bound_by": bound_by,
-                      "launches_per_frame": {}}
+                      "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def phase_harness(smi):
@@ -955,18 +1206,19 @@ def phase_harness(smi):
     for k in kernels.values():
         k.launches = 0
     t0 = time.perf_counter()
-    rc, rows = run_captured(12, bench.main, [])
+    rc, rows = run_captured(14, bench.main, [])
     seconds = time.perf_counter() - t0
     launches = {name: k.launches for name, k in kernels.items()}
     by = {}
     for r in rows:
         by.setdefault(r["config"], []).append(r)
-    say(12, f"harness: rc {rc}, configs {sorted(by)}, {len(rows)} lines in "
+    say(14, f"harness: rc {rc}, configs {sorted(by)}, {len(rows)} lines in "
             f"{seconds:.1f} s, launches {launches}")
     assert rc == 0 and sorted(by) == [1, 2, 3, 4, 5, 6]
     assert not any("error" in r for r in rows)
     assert all(r["device"] == smi for r in rows)
-    assert all(n > 0 for n in launches.values()), launches
+    assert all((n > 0) == (name != "stall")
+               for name, n in launches.items()), launches
     assert by[1][0]["node_agreement"] >= 0.999, by[1]
     assert len(by[6]) == 15 and min(r["node_agreement"] for r in by[6]) >= 0.99
     for config in (2, 3, 4, 5):
@@ -979,7 +1231,7 @@ def check_no_jax_package():
     """The run imported nothing of the JAX package, JAX or Triton."""
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("voxtracer", "jax", "jaxlib", "triton"))
-    say(13, f"modules of the JAX package, JAX or Triton imported: {bad}")
+    say(15, f"modules of the JAX package, JAX or Triton imported: {bad}")
     assert not bad, bad
 
 
@@ -1003,6 +1255,18 @@ def main():
     entries["resample"] = phase_resample(smi, poses)
     phase_temporal_blend(smi, poses)
     launches["stall"], entries["stall"] = phase_stallbench(smi)
+    sequence = {
+        "config 2": phase_sequence("config 2: menger", "menger", WIDTH,
+                                   HEIGHT, "static", 0, True, smi),
+        "config 3": phase_sequence("config 3: chr_knight", "chr_knight", 1280,
+                                   720, "orbit", 0, False, smi),
+        "config 4": phase_sequence("config 4: monu9", "monu9", 1920, 1080,
+                                   "dolly", 2, False, smi),
+        "mixed": phase_sequence("mixed path: chr_knight", "chr_knight", 320,
+                                180, "mixed", 2, False, smi, frames=7,
+                                timed=False),
+    }
+    phase_cli(smi)
     launches["resample"] = phase_harness(smi)["resample"]
     check_no_jax_package()
     # The trace's times, bound and launches come from the main path
@@ -1018,10 +1282,16 @@ def main():
     for name, err in (("temporal", temporal_err), ("denoise", denoise_err),
                       *((k, e["max_abs_err"]) for k, e in config3.items())):
         entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"], err)
-    for name in ("trace", "temporal", "denoise", "resample"):
+    for name in entries:
         entries[name]["launches_per_frame"] = {
             config: counts[name] for config, counts in per_frame.items()}
-    entries["stall"]["launches_per_frame"] = {config: 0.0 for config in per_frame}
+    # this slice's path: the launches read around phase 12's replayed
+    # sequences, which run three of the five kernels and no other
+    for name in entries:
+        entries[name]["sequence_launches"] = {
+            config: counts[name] for config, (counts, _) in sequence.items()}
+        total = sum(entries[name]["sequence_launches"].values())
+        assert (total > 0) == (name in SEQUENCE_KERNELS), (name, total)
     for name in ("trace", "temporal", "denoise", "stall"):
         entries[name]["library_ms"] = None  # no one PyTorch call computes it
     sources = {
@@ -1037,7 +1307,7 @@ def main():
                   "voxtracer/app/stallbench.py:171"),
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "launches_per_frame", "library_ms")
+            "launches_per_frame", "sequence_launches", "library_ms")
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name],

@@ -15,10 +15,15 @@ by more than 1e-3 (0 measured on an H100 with torch 2.11 / CUDA 12.8).
 Temporal: validity and next blend bit-exact, colour within 1e-6 (no
 transcendental).
 Denoise: 1e-6 absolute plus 1e-6 relative (expf/logf may round
-differently from torch's), at every template instance of the kernel and
-its runtime-radius instance, on sizes that are no multiple of its tile.  Resample: bit-equal, NaN where a coordinate
-is not finite (no transcendental).  Stall microbenchmark: integer,
-equal.
+differently from torch's), at every template instance of the kernel,
+its runtime-radius instance and the instance for radii whose tile does
+not fit shared memory, on sizes that are no multiple of its tile.
+Resample: bit-equal, NaN where a coordinate is not finite (no
+transcendental).  Stall microbenchmark: integer, equal.  A kernel's
+row-reading entry equals its by-value entry, the row-reading still blend
+and modulate equal the forms that read Python numbers, and a sequence
+replayed from CUDA graphs equals the same frames from ``render()``: all
+bit for bit (the same code on the same values).
 """
 
 import os
@@ -30,14 +35,19 @@ import torch
 from voxtracer_torch.app import bench, camera_paths, stallbench
 from voxtracer_torch.engine.camera import Camera
 from voxtracer_torch.engine.params import (
+    ROW_DENOISE,
+    ROW_TEMPORAL,
+    ROW_TRACE,
     DenoiseParams,
+    DeviceRow,
     RenderParams,
     TemporalParams,
     pack_denoise_params,
+    pack_frame_rows,
     pack_temporal_params,
     pack_trace_params,
 )
-from voxtracer_torch.engine.pipeline import Renderer
+from voxtracer_torch.engine.pipeline import STATE_PLANES, Renderer
 from voxtracer_torch.engine.scene import (
     GridScene,
     SceneTables,
@@ -296,12 +306,201 @@ def test_denoise_kernel_interior_and_border_blocks(cuda, h, w, radius,
 
 
 def test_denoise_kernel_refuses_a_tile_beyond_shared_memory(cuda):
-    planes = _denoise_planes(40, 40, cuda)
-    params = pack_denoise_params(MENGER.rows(40, 40), DenoiseParams())
-    before = denoise.denoise_cuda.launches
-    with pytest.raises(ValueError, match="shared bytes"):
-        denoise.denoise_cuda(*planes, params, 27)
-    assert denoise.denoise_cuda.launches == before
+    """r = 27, whose tile no longer fits, is not refused (the test keeps
+    the name it had while it was): the plan is the instance that reads
+    its taps from global memory, and it matches the plain version."""
+    assert denoise.tile_plan(40, 40, 27).instance == denoise.GLOBAL_INSTANCE
+    _assert_denoise_matches_plain(40, 40, 27, cuda)
+
+
+@pytest.mark.parametrize("radius", [27, 32])
+@pytest.mark.parametrize("h, w", [(3, 5), (19, 37), (187, 333)])
+def test_denoise_kernel_beyond_the_tile(cuda, h, w, radius):
+    """Radii above 26 on sizes that are no multiple of the block."""
+    _assert_denoise_matches_plain(h, w, radius, cuda)
+
+
+def _path_rows(device, w, h, cursor, dp=DenoiseParams()):
+    """Three frames of a menger path: frame ``cursor``'s row on the
+    device, the rows on the host and the cameras."""
+    cams = [Camera(position=MENGER.position + np.array([0.2 * i, 0.1 * i, 0]),
+                   direction=MENGER.direction).rows(w, h) for i in range(4)]
+    rows = pack_frame_rows(cams[1:], cams[0], True, 7, RenderParams(),
+                           TemporalParams(), dp)
+    device_row = DeviceRow(
+        torch.from_numpy(rows).to(device).index_select(
+            0, torch.tensor([cursor], device=device))[0], rows[0])
+    return device_row, rows, cams
+
+
+@pytest.mark.parametrize("cursor", [0, 2])
+def test_row_entries_equal_by_value_entries(cuda, cursor):
+    """Each frame kernel reading a row on the device against the same
+    kernel given that row's slice by value: equal bit for bit, counters
+    included, at a ragged size and a denoise radius of each kind of
+    instance."""
+    w, h = 333, 187
+    dp = DenoiseParams(sigma_distance=1.2, sigma_range=0.7, albedo_factor=0.35)
+    frame_rows, rows, _ = _path_rows(cuda, w, h, cursor, dp)
+    row = rows[cursor]
+    tables = SceneTables(load_scene("menger"), cuda)
+    noise = torch.from_numpy(blue_noise_buffer()).to(cuda)
+    before = trace.render_sample_cuda.launches
+    g = trace.render_sample_cuda(tables, frame_rows, noise, None, h, w)
+    v = trace.render_sample_cuda(tables, row[ROW_TRACE:ROW_TRACE + 32], noise,
+                                 7 + cursor, h, w)
+    assert trace.render_sample_cuda.launches == before + 2
+    assert (v["depth"] >= 0).any()
+    for key in v:
+        assert torch.equal(g[key], v[key]), key
+
+    old = _menger_gbuf(MENGER, cuda, w, h)
+    blend = torch.full((h, w), 0.3, device=cuda)
+    args = (g["color"], g["normal"], g["depth"], old["color"], blend,
+            old["depth"])
+    rc, rb = temporal.temporal_blend_reproject_cuda(*args, frame_rows)
+    vc, vb = temporal.temporal_blend_reproject_cuda(
+        *args, row[ROW_TEMPORAL:ROW_TEMPORAL + 40])
+    assert (vb < 0.5).any(), "degenerate comparison: no history kept"
+    assert torch.equal(rc, vc) and torch.equal(rb, vb)
+
+    for radius in (1, 2, 12, 27):
+        planes = (vc, g["normal"], g["depth"], g["albedo"], g["node"])
+        r = denoise.denoise_cuda(*planes, frame_rows, radius)
+        v = denoise.denoise_cuda(*planes, row[ROW_DENOISE:ROW_DENOISE + 16],
+                                 radius)
+        assert torch.equal(r, v), radius
+    torch.cuda.synchronize()
+
+
+def test_row_reading_still_blend_and_modulate_equal_by_value(cuda):
+    """The plain torch stages of a frame reading 0-dim views of the
+    device row against the forms reading Python numbers."""
+    w, h = 333, 187
+    dp = DenoiseParams(albedo_factor=0.35)
+    frame_rows, rows, cams = _path_rows(cuda, w, h, 1, dp)
+    g = _menger_gbuf(MENGER, cuda, w, h)
+    old = _menger_gbuf(MENGER, cuda, w, h)
+    blend = torch.full((h, w), 0.3, device=cuda)
+    args = (g["color"], g["normal"], g["depth"], old["color"], blend,
+            old["depth"])
+    rc, rb = temporal.temporal_blend_still_row(*args, frame_rows.row)
+    hc, hb = temporal.temporal_blend_still_row(*args, rows[1])
+    vc, vb = temporal.temporal_blend_still_planar(
+        *args, cams[2], cams[1], TemporalParams(), True)
+    assert torch.equal(rc, vc) and torch.equal(rb, vb)
+    assert torch.equal(hc, vc) and torch.equal(hb, vb)
+    assert torch.equal(
+        denoise.modulate_row(vc, g["albedo"], frame_rows.row),
+        denoise._modulate(vc, g["albedo"], rows[1][ROW_DENOISE + 14]))
+    assert torch.equal(
+        denoise.denoise(vc, g["normal"], g["depth"], g["albedo"], g["node"],
+                        frame_rows, 0),
+        denoise.denoise(vc, g["normal"], g["depth"], g["albedo"], g["node"],
+                        rows[1][ROW_DENOISE:ROW_DENOISE + 16], 0))
+
+
+def _sequence_paths(scene):
+    orbit = camera_paths.orbit(scene, distance=0.6)
+    return {
+        "still": [orbit(0.0)] * 5,
+        "orbit": [orbit(i / 30.0) for i in range(5)],
+        "mixed": [orbit(t / 30.0) for t in (0, 0, 1, 2, 2, 2, 3)],
+    }
+
+
+@pytest.mark.parametrize("path, radius", [("still", 1), ("orbit", 0),
+                                          ("mixed", 2), ("mixed", 0)])
+def test_graph_replayed_sequence_equals_the_loop(cuda, path, radius):
+    """Frames, state, counters and launch counts of a sequence replayed
+    from CUDA graphs, of the same frames run eagerly through the
+    row-reading entries, and of ``render()`` calls; twice, so that the
+    second sequence replays graphs captured by the first and starts from
+    live history; then a ``render()`` that follows."""
+    scene = load_scene("chr_knight")
+    cams = _sequence_paths(scene)[path]
+    kw = dict(scene=scene, height=90, width=123, device="cuda",
+              denoise_radius=radius, lean=True)
+    loop, graph, eager = Renderer(**kw), Renderer(**kw), Renderer(**kw)
+    counters = (trace.render_sample_cuda,
+                temporal.temporal_blend_reproject_cuda, denoise.denoise_cuda)
+
+    def counted(fn):
+        before = [c.launches for c in counters]
+        out = fn()
+        return out, [c.launches - b for c, b in zip(counters, before)]
+
+    for again in (False, True):
+        kinds = set() if again else set(graph._pack_sequence(cams)[1])
+        want, n_loop = counted(
+            lambda: torch.stack([loop.render(c)["image"] for c in cams]))
+        got, n_graph = counted(lambda: graph.render_sequence(cams))
+        got_eager, n_eager = counted(
+            lambda: eager.render_sequence(cams, graph=False))
+        torch.cuda.synchronize()
+        assert got.shape == (len(cams), 90, 123, 3) and got.dtype == torch.uint8
+        assert torch.equal(got, want) and torch.equal(got_eager, want)
+        for r in (graph, eager):
+            for k in STATE_PLANES:
+                assert torch.equal(r.state[k], loop.state[k]), k
+            np.testing.assert_array_equal(r.state["old_cam"],
+                                          loop.state["old_cam"])
+            assert r.state["history_valid"]
+            assert (r.frame_number, r.still_sample) == (
+                loop.frame_number, loop.still_sample)
+        assert n_eager == n_loop
+        # the first sequence also ran one eager frame before each capture
+        warm = [len(kinds), int(True in kinds), len(kinds) * bool(radius)]
+        assert n_graph == [a + b for a, b in zip(n_loop, warm)]
+    follow = camera_paths.orbit(scene, distance=0.6)(0.5)
+    assert torch.equal(graph.render(follow)["image"],
+                       loop.render(follow)["image"])
+
+
+def test_burst_on_cuda_returns_the_last_frame_of_any_length(cuda):
+    """A burst equals as many ``render()`` calls and holds one image;
+    a longer one afterwards only needs more rows."""
+    scene = load_scene("menger")
+    kw = dict(scene=scene, height=48, width=64, device="cuda", lean=True)
+    loop, burst = Renderer(**kw), Renderer(**kw)
+    for n in (3, 9):
+        for _ in range(n):
+            want = loop.render(MENGER)["image"]
+        got = burst.render_burst(MENGER, n)
+        assert got.shape == (48, 64, 3) and torch.equal(got, want)
+        assert burst._runner.frames.shape[0] == 1
+        assert burst.still_sample == loop.still_sample
+    assert burst.frame_number == 12
+
+
+def test_graphs_are_dropped_with_what_they_froze(cuda):
+    """A changed radius, size or scene gets a new runner; the sequence
+    after it still equals the loop."""
+    scene = load_scene("menger")
+    kw = dict(scene=scene, height=48, width=64, device="cuda", lean=True)
+    loop, seq = Renderer(**kw), Renderer(**kw)
+    cams = [MENGER] * 3
+
+    def check():
+        want = torch.stack([loop.render(c)["image"] for c in cams])
+        assert torch.equal(seq.render_sequence(cams), want)
+
+    check()
+    first = seq._runner
+    check()
+    assert seq._runner is first and len(first.graphs) == 1
+    for r in (loop, seq):
+        r.denoise_radius = 2
+    check()
+    assert seq._runner is not first
+    for r in (loop, seq):
+        r.resize(40, 56)
+    assert seq._runner is None
+    check()
+    for r in (loop, seq):
+        r.set_scene(load_scene("chr_knight"))
+    assert seq._runner is None
+    check()
 
 
 def test_renderer_on_cuda_runs_every_kernel_on_a_moving_path(cuda):

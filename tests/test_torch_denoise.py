@@ -148,13 +148,14 @@ def test_factor_dist_table_is_the_plain_per_tap_value(radius, sigma_distance):
     assert table.tolist() == want
 
 
-@pytest.mark.parametrize("radius", [1, 2, 8, 12])
+@pytest.mark.parametrize("radius", [1, 2, 8, 12, 27, 32])
 @pytest.mark.parametrize("h, w", [(1, 1), (3, 5), (19, 37), (187, 333),
                                   (1080, 1920), (2160, 3840)])
 def test_tile_plan_covers_every_pixel_once(h, w, radius):
     """Block (bx, by), thread (tx, ty) and output j of the plan compute
-    pixel (bx * 32 + tx, by * 32 + ty * 4 + j) as csrc/denoise.cu does:
-    the pixels inside the frame are each computed exactly once."""
+    pixel (bx * 32 + tx, by * 32 + ty * 4 + j) as csrc/denoise.cu does
+    (one output a thread, pixel (bx * 32 + tx, by * 8 + ty), above
+    r = 26): the pixels inside the frame are each computed exactly once."""
     plan = denoise.tile_plan(h, w, radius)
     bw, bh = plan.block
     k = plan.rows_per_thread
@@ -167,7 +168,8 @@ def test_tile_plan_covers_every_pixel_once(h, w, radius):
     assert len(set(ys.tolist())) == ys.size
     assert set(range(w)) <= set(xs.tolist()) and xs.max() < w + bw
     assert set(range(h)) <= set(ys.tolist()) and ys.max() < h + bh * k
-    assert plan.instance == (radius if radius <= 8 else 0)
+    assert plan.instance == (radius if radius <= 8 else
+                             0 if radius <= 26 else denoise.GLOBAL_INSTANCE)
 
 
 @pytest.mark.parametrize("radius", range(1, 9))
@@ -180,11 +182,16 @@ def test_tile_plan_fits_shared_memory(radius):
 
 def test_cuda_wrapper_raises_where_the_tile_exceeds_shared_memory():
     """r = 26 is the largest radius whose haloed tile fits; beyond it the
-    wrapper raises before it looks for a card (no fallback)."""
-    assert denoise.tile_plan(64, 64, 26).shared_bytes <= 232_448
-    assert denoise.tile_plan(64, 64, 27).shared_bytes > 232_448
+    plan is the instance that reads its taps from global memory, and the
+    wrapper raises only because its tensors are not on a card (no
+    fallback).  The test keeps the name it had while r = 27 raised."""
+    assert 0 < denoise.tile_plan(64, 64, 26).shared_bytes <= 232_448
+    assert 8 * 4 * (32 + 2 * 27) ** 2 > 232_448
+    assert denoise.tile_plan(64, 64, 27) == denoise.TilePlan(
+        instance=denoise.GLOBAL_INSTANCE, block=(32, 8), grid=(2, 8),
+        rows_per_thread=1, shared_bytes=0)
     x = _inputs()
-    with pytest.raises(ValueError, match="shared bytes"):
+    with pytest.raises(ValueError, match="CUDA kernel given tensors on cpu"):
         denoise.denoise_cuda(*(torch.from_numpy(v) for v in x.values()),
                              pack_denoise_params(CAM, DenoiseParams()), 27)
     # the dispatcher's CPU path, the plain version, has no such limit

@@ -48,7 +48,8 @@ def test_port_imports_neither_jax_nor_triton():
                  "denoisebench"):
         assert f"voxtracer_torch.app.{name}" in res["modules"]
     for name in ("io.vox", "io.image", "scene.grid", "scene.procedural",
-                 "native", "oracle.renderer", "ops.noise"):
+                 "native", "oracle.renderer", "ops.noise", "utils.log",
+                 "utils.timing", "io.f32zip", "engine.snapshot"):
         assert f"voxtracer_torch.{name}" in res["modules"]
     assert res["bad"] == []
 

@@ -1,7 +1,8 @@
 """The port's main path as a whole — ``Renderer(device="cpu")``: the
 still camera at denoise radius 0, and moving cameras at radius 0 and 2 —
 against the JAX package's Renderer, plus the stage selection, the
-boundaries of what is ported and the CLI."""
+boundaries of what is ported and the CLI (its session flags are in
+``tests/test_torch_session.py``)."""
 
 import functools
 import os
@@ -317,7 +318,7 @@ def test_cli_refuses_a_negative_denoise_radius():
 
 
 @pytest.mark.parametrize(
-    "flags", [["--legacy-whitted"], ["--save-snapshot", "s.npz"]],
+    "flags", [["--legacy-whitted"], ["--watch-kernels"]],
 )
 def test_cli_refuses_what_is_not_ported(flags):
     with pytest.raises(SystemExit, match="not yet ported"):

@@ -42,10 +42,18 @@ def test_device_activities_are_the_device_kernels_only():
     assert names == ["trace_kernel", "Memcpy HtoD"]
 
 
-def test_profile_runs_on_the_cpu(capsys):
+@pytest.mark.parametrize("batch", [[], ["--batch", "2"]],
+                         ids=["render", "render_sequence"])
+def test_profile_runs_on_the_cpu(capsys, batch):
     assert profile.main(["--device", "cpu", "--scene", "8x8x8", "--size",
                          "16x12", "--path", "orbit", "--denoise-radius", "1",
-                         "--warmup", "1", "--frames", "2"]) == 0
+                         "--warmup", "1", "--frames", "2", *batch]) == 0
     out = capsys.readouterr().out
     assert "profiled: wall" in out and "busy share 0.0000" in out
     assert "unprofiled:" in out
+    assert ("in sequences of 2" in out) == bool(batch)
+
+
+def test_profile_refuses_frames_that_are_no_whole_batches():
+    with pytest.raises(SystemExit, match="no multiple"):
+        profile.main(["--device", "cpu", "--frames", "5", "--batch", "2"])

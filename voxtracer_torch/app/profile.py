@@ -4,7 +4,9 @@
     python -m voxtracer_torch.app.profile --scene monu9 --size 1920x1080 \\
         --path dolly --denoise-radius 2
 
-Renders warm-up frames, then ``--frames`` frames inside one profiled
+With ``--batch N`` the frames go through ``Renderer.render_sequence``,
+N a call (on the card: replays of its captured CUDA graphs), instead of
+``Renderer.render``.  Renders warm-up frames, then ``--frames`` frames inside one profiled
 range that ends with a device synchronise.  From that one trace it
 prints the range's wall time per frame, the device time per frame (the
 union of the device activities inside the range: kernels, copies and
@@ -77,8 +79,13 @@ def main(argv=None) -> int:
     p.add_argument("--fps-target", type=float, default=30.0)
     p.add_argument("--warmup", type=int, default=3)
     p.add_argument("--frames", type=int, default=12)
+    p.add_argument("--batch", type=int, default=1,
+                   help="frames a render_sequence call; 1: render() a frame")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
+    if args.batch < 1 or args.frames % args.batch:
+        raise SystemExit(f"--frames {args.frames} is no multiple of --batch "
+                         f"{args.batch}")
 
     width, height = (int(v) for v in args.size.lower().split("x"))
     scene = load_scene(args.scene)
@@ -87,8 +94,17 @@ def main(argv=None) -> int:
     r = Renderer(scene=scene, height=height, width=width, device=args.device,
                  denoise_radius=args.denoise_radius, lean=True)
     n = args.frames
-    for _ in range(args.warmup):
-        r.render(next(cams))
+
+    def advance(frames):
+        if args.batch == 1:
+            for _ in range(frames):
+                r.render(next(cams))
+        else:
+            for _ in range(frames // args.batch):
+                r.render_sequence([next(cams) for _ in range(args.batch)])
+
+    # whole batches in the warm-up: the first sequence captures its graphs
+    advance(-(-args.warmup // args.batch) * args.batch)
     _sync(r.device)
 
     activities = [torch.profiler.ProfilerActivity.CPU]
@@ -96,8 +112,7 @@ def main(argv=None) -> int:
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=activities) as prof:
         with torch.profiler.record_function(RANGE):
-            for _ in range(n):
-                r.render(next(cams))
+            advance(n)
             _sync(r.device)
     events = prof.events()
     span = next(e for e in events if e.name == RANGE
@@ -108,7 +123,8 @@ def main(argv=None) -> int:
     wall_ms = span.elapsed_us() / 1e3 / n
     busy_ms = busy_us / 1e3 / n
     label = (f"{args.scene} {width}x{height} {args.path} "
-             f"r={args.denoise_radius}, {n} frames")
+             f"r={args.denoise_radius}, {n} frames"
+             + (f" in sequences of {args.batch}" if args.batch > 1 else ""))
     print(f"{label} profiled: wall {wall_ms:.4f} ms/frame, device "
           f"{busy_ms:.4f} ms/frame, busy share {busy_ms / wall_ms:.4f}, "
           f"{len(dev) / n:.1f} device activities/frame")
@@ -124,15 +140,13 @@ def main(argv=None) -> int:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(n):
-            r.render(next(cams))
+        advance(n)
         end.record()
         end.synchronize()
         frame_ms = start.elapsed_time(end) / n
     else:
         t0 = time.perf_counter()
-        for _ in range(n):
-            r.render(next(cams))
+        advance(n)
         frame_ms = (time.perf_counter() - t0) * 1e3 / n
     print(f"{label} unprofiled: {frame_ms:.4f} ms/frame; profiled device "
           f"time over it (estimate of the busy share) "

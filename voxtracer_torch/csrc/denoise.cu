@@ -47,8 +47,31 @@
 // - A tap between equal elements has a zero dividend, which the IEEE
 //   division sends down its slow path; the kernel divides a stand-in
 //   there, so sky-filled frames run as fast as any other.
+// - Above r = 26 the haloed tile no longer fits a block's 232,448 bytes
+//   of shared memory.  Those radii run `denoise_global_kernel`: one
+//   thread per pixel, every tap read from global memory (L1/L2 serve the
+//   overlap of neighbouring windows), log|depth| per tap, factor_dist
+//   computed per tap as float32(dx^2 + dy^2) / float32(sigma_d^2), the
+//   table's values, in the same tap order.  No shipped configuration uses
+//   such a radius; the instance exists so that none is refused.
 // The launch geometry comes from the wrapper (ops/denoise.py
 // `tile_plan`); the launcher checks it against the constants below.
+//
+// Parameters.  The sigmas, the albedo factor and the factor_dist table
+// are constant over a camera path and always come by value.  The camera
+// rows come by value too, or, in the row-reading entries (ROW), from a
+// device pointer to the kernel's slice of a frame row: the launcher
+// copies them, device to device and in stream order, into `c_camera` in
+// constant memory just before the launch, so a captured CUDA graph (a
+// copy node, then the kernel) denoises by whichever row the device holds
+// there at replay.  ROW is a template flag of the one body; both
+// instances read the camera from a constant bank: staging it through
+// shared memory instead, behind the tile's copies, keeps the rays from
+// overlapping them, and measured 31% slower on an H100 at 1920x1080,
+// r = 2 (PERF.md §6).  `c_camera` is one per process: the copy and the
+// kernel that reads it are ordered on their stream and on no other, so
+// row-reading launches (and graphs that hold them) from two streams at
+// once would race on it.  The port renders on one stream.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -67,6 +90,8 @@ constexpr int STATIC_RADII = 8;  // instances 1..8; 0 takes the radius at run ti
 // the largest radius whose haloed tile fits 232,448 bytes of shared memory
 constexpr int MAX_RADIUS = 26;
 constexpr int OUTSIDE = INT_MIN;  // node >> 24 of an element outside the frame
+constexpr int GLOBAL = -1;  // the instance for radii beyond MAX_RADIUS
+constexpr int N_CAMERA = 12;  // the camera rows, slots 0-11 of the vector
 
 constexpr int table_radius(int R) { return R > 0 ? R : MAX_RADIUS; }
 
@@ -98,6 +123,9 @@ __device__ __forceinline__ void copy4(float* dst, const void* src,
 __device__ __forceinline__ void prefetch_l1(const float* a) {
     asm volatile("prefetch.global.L1 [%0];\n" ::"l"(a));
 }
+
+// the row-reading entries' camera rows
+__constant__ float c_camera[N_CAMERA];
 
 // one output pixel: its own element, depth bias and running sums
 struct Out {
@@ -162,7 +190,7 @@ __device__ __forceinline__ void taps(const Params<R>& P, const float* tile,
 // shared loads for 24 resident warps to hide their latency: that
 // instance unrolls its dx loop and keeps 64 registers for 32 warps a SM
 // (13% faster at 1080p than with the rolled loop; PERF.md, PR 5).
-template <int R>
+template <int R, bool ROW>
 __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y, R == 1 ? 4 : 1)
 denoise_kernel(
     const Params<R> P, const float* __restrict__ colors,
@@ -195,6 +223,7 @@ denoise_kernel(
     // while the copies are in flight: each output's ray (for the
     // depth-bias term, denoise.comp:28-32,47), and its albedo into L1
     const float* p = P.p;
+    const float* c = ROW ? c_camera : P.p;
     const int x = blockIdx.x * TILE_X + threadIdx.x;
     const int ty = threadIdx.y * ROWS;  // the first output's row in the tile
     const float pxf = (float)x;
@@ -203,9 +232,9 @@ denoise_kernel(
     for (int j = 0; j < ROWS; ++j) {
         const int y = blockIdx.y * TILE_Y + ty + j;
         const float pyf = (float)y;
-        float rx = pxf * p[3] - pyf * p[6] + p[9];
-        float ry = pxf * p[4] - pyf * p[7] + p[10];
-        float rz = pxf * p[5] - pyf * p[8] + p[11];
+        float rx = pxf * c[3] - pyf * c[6] + c[9];
+        float ry = pxf * c[4] - pyf * c[7] + c[10];
+        float rz = pxf * c[5] - pyf * c[8] + c[11];
         const float rn = sqrtf(rx * rx + ry * ry + rz * rz);
         ray[j][0] = rx / rn;
         ray[j][1] = ry / rn;
@@ -270,54 +299,134 @@ denoise_kernel(
     }
 }
 
-template <int R>
+// The instance for radii whose tile does not fit: one thread per pixel,
+// taps from global memory, in denoise_plain's operation order.
+template <bool ROW>
+__global__ void __launch_bounds__(BLOCK_X * BLOCK_Y) denoise_global_kernel(
+    const Params<1> P, const float* __restrict__ colors,
+    const float* __restrict__ normal, const float* __restrict__ depth,
+    const float* __restrict__ albedo, const int* __restrict__ node,
+    int height, int width, int radius, float* __restrict__ out) {
+    const float* p = P.p;
+    const float* c = ROW ? c_camera : P.p;
+    const int x = blockIdx.x * BLOCK_X + threadIdx.x;
+    const int y = blockIdx.y * BLOCK_Y + threadIdx.y;
+    if (x >= width || y >= height) return;
+    const size_t plane = (size_t)height * width;
+    const size_t o = (size_t)y * width + x;
+    const float pxf = (float)x, pyf = (float)y;
+
+    float rx = pxf * c[3] - pyf * c[6] + c[9];
+    float ry = pxf * c[4] - pyf * c[7] + c[10];
+    float rz = pxf * c[5] - pyf * c[8] + c[11];
+    const float rn = sqrtf(rx * rx + ry * ry + rz * rz);
+    rx = rx / rn;
+    ry = ry / rn;
+    rz = rz / rn;
+
+    const float c_r = colors[o], c_g = colors[plane + o],
+                c_b = colors[2 * plane + o];
+    const float c_nx = normal[o], c_ny = normal[plane + o],
+                c_nz = normal[2 * plane + o];
+    const float c_logd = logf(fabsf(depth[o]));
+    const int c_mat = node[o] >> 24;
+    const float depth_bias = max0(c_nx * -rx + c_ny * -ry + c_nz * -rz);
+    const float sigma_d2 = 2.0f * (p[12] * p[12]);
+    const float sigma_r2 = 2.0f * (p[13] * p[13]);
+
+    float norm_sum = 0.f, sum_r = 0.f, sum_g = 0.f, sum_b = 0.f;
+    for (int dy = -radius; dy <= radius; ++dy) {
+        const int yy = y + dy;
+        if (yy < 0 || yy >= height) continue;
+        for (int dx = -radius; dx <= radius; ++dx) {
+            const int xx = x + dx;
+            if (xx < 0 || xx >= width) continue;
+            const size_t q = (size_t)yy * width + xx;
+            const float w_r = colors[q], w_g = colors[plane + q],
+                        w_b = colors[2 * plane + q];
+            const float cdr = c_r - w_r, cdg = c_g - w_g, cdb = c_b - w_b;
+            const float ndx = c_nx - normal[q];
+            const float ndy = c_ny - normal[plane + q];
+            const float ndz = c_nz - normal[2 * plane + q];
+            const float dd = c_logd - logf(fabsf(depth[q]));
+            const float md = c_mat != (node[q] >> 24) ? 1.f : 0.f;
+            const float bd = depth_bias * dd;
+            const float factor_range =
+                (cdr * cdr + cdg * cdg + cdb * cdb +
+                 1e4f * (ndx * ndx + ndy * ndy + ndz * ndz) + 1e4f * (bd * bd) +
+                 1e4f * md) /
+                sigma_r2;
+            const float factor_dist = (float)(dx * dx + dy * dy) / sigma_d2;
+            const float f = expf(-factor_range - factor_dist);
+            norm_sum = norm_sum + f;
+            sum_r = sum_r + f * w_r;
+            sum_g = sum_g + f * w_g;
+            sum_b = sum_b + f * w_b;
+        }
+    }
+
+    // albedo modulation: out * (1 - f + f * albedo)
+    const float af = p[14];
+    const float base = 1.0f - af;
+    out[o] = (sum_r / norm_sum) * (base + af * albedo[o]);
+    out[plane + o] = (sum_g / norm_sum) * (base + af * albedo[plane + o]);
+    out[2 * plane + o] =
+        (sum_b / norm_sum) * (base + af * albedo[2 * plane + o]);
+}
+
+struct Planes {
+    const float* colors;
+    const float* normal;
+    const float* depth;
+    const float* albedo;
+    const int* node;
+    float* out;
+};
+
+template <int R, bool ROW>
 cudaError_t launch(const float* params_host, const float* fdist_host,
-                   const float* colors, const float* normal,
-                   const float* depth, const float* albedo, const int* node,
-                   int height, int width, int radius, dim3 grid, int shared,
-                   float* out, cudaStream_t stream) {
+                   const Planes& g, int height, int width, int radius,
+                   dim3 grid, int shared, cudaStream_t stream) {
     // above 48 KB a block's dynamic shared memory needs the attribute;
     // set once per instance, for its largest tile
     static const cudaError_t attr = cudaFuncSetAttribute(
-        denoise_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        denoise_kernel<R, ROW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         tile_bytes(table_radius(R)));
     if (attr != cudaSuccess) return attr;
     Params<R> P;
     memcpy(P.p, params_host, sizeof(P.p));
     memcpy(P.fdist, fdist_host, sizeof(float) * (2 * radius + 1) * (2 * radius + 1));
-    denoise_kernel<R><<<grid, dim3(BLOCK_X, BLOCK_Y), shared, stream>>>(
-        P, colors, normal, depth, albedo, node, height, width, radius, out);
+    denoise_kernel<R, ROW><<<grid, dim3(BLOCK_X, BLOCK_Y), shared, stream>>>(
+        P, g.colors, g.normal, g.depth, g.albedo, g.node, height, width,
+        radius, g.out);
     return cudaGetLastError();
 }
 
-}  // namespace
+template <bool ROW>
+cudaError_t launch_global(const float* params_host, const Planes& g,
+                          int height, int width, int radius, dim3 grid,
+                          cudaStream_t stream) {
+    Params<1> P = {};
+    memcpy(P.p, params_host, sizeof(P.p));
+    denoise_global_kernel<ROW><<<grid, dim3(BLOCK_X, BLOCK_Y), 0, stream>>>(
+        P, g.colors, g.normal, g.depth, g.albedo, g.node, height, width,
+        radius, g.out);
+    return cudaGetLastError();
+}
 
-// The plan (instance, block, rows per thread, grid, shared bytes) is
-// ops/denoise.py `tile_plan`'s; a plan that disagrees with this build's
-// constants is refused with cudaErrorInvalidConfiguration.
-extern "C" int vt_denoise_launch(
-    const float* params_host, const float* fdist_host, const float* colors,
-    const float* normal, const float* depth, const float* albedo,
-    const int* node, int height, int width, int radius, int instance,
-    int block_x, int block_y, int rows, int grid_x, int grid_y, int shared,
-    float* out, void* stream) {
-    const bool fits =
-        radius >= 1 && radius <= MAX_RADIUS &&
-        instance == (radius <= STATIC_RADII ? radius : 0) &&
-        block_x == BLOCK_X && block_y == BLOCK_Y && rows == ROWS &&
-        grid_x == (width + TILE_X - 1) / TILE_X &&
-        grid_y == (height + TILE_Y - 1) / TILE_Y && shared == tile_bytes(radius);
-    if (!fits) return static_cast<int>(cudaErrorInvalidConfiguration);
-    const dim3 grid(grid_x, grid_y);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    cudaError_t err;
+template <bool ROW>
+cudaError_t launch_instance(int instance, const float* params_host,
+                            const float* fdist_host, const Planes& g,
+                            int height, int width, int radius, dim3 grid,
+                            int shared, cudaStream_t stream) {
     switch (instance) {
+        case GLOBAL:
+            return launch_global<ROW>(params_host, g, height, width, radius,
+                                      grid, stream);
 #define VT_DENOISE_CASE(R)                                                   \
     case R:                                                                  \
-        err = launch<R>(params_host, fdist_host, colors, normal, depth,      \
-                        albedo, node, height, width, radius, grid, shared,   \
-                        out, s);                                             \
-        break;
+        return launch<R, ROW>(params_host, fdist_host, g, height, width,     \
+                              radius, grid, shared, stream);
         VT_DENOISE_CASE(0)
         VT_DENOISE_CASE(1)
         VT_DENOISE_CASE(2)
@@ -329,7 +438,49 @@ extern "C" int vt_denoise_launch(
         VT_DENOISE_CASE(8)
 #undef VT_DENOISE_CASE
         default:
-            err = cudaErrorInvalidConfiguration;
+            return cudaErrorInvalidConfiguration;
     }
-    return static_cast<int>(err);
+}
+
+}  // namespace
+
+// The plan (instance, block, rows per thread, grid, shared bytes) is
+// ops/denoise.py `tile_plan`'s; a plan that disagrees with this build's
+// constants is refused with cudaErrorInvalidConfiguration.  `params_host`
+// (a host pointer) holds the whole vector; where `row` (a device pointer
+// to the kernel's slice of a frame row) is not null, the camera rows come
+// from there instead.  `fdist_host` is the tiled instances' table and is
+// not read by the GLOBAL one.
+extern "C" int vt_denoise_launch(
+    const float* params_host, const float* fdist_host, const float* row,
+    const float* colors, const float* normal, const float* depth,
+    const float* albedo, const int* node, int height, int width, int radius,
+    int instance, int block_x, int block_y, int rows_per_thread, int grid_x,
+    int grid_y, int shared, float* out, void* stream) {
+    const bool tiled = radius <= MAX_RADIUS;
+    const int tile_x = tiled ? TILE_X : BLOCK_X;
+    const int tile_y = tiled ? TILE_Y : BLOCK_Y;
+    const bool fits =
+        radius >= 1 && params_host && (fdist_host || !tiled) &&
+        instance ==
+            (tiled ? (radius <= STATIC_RADII ? radius : 0) : GLOBAL) &&
+        block_x == BLOCK_X && block_y == BLOCK_Y &&
+        rows_per_thread == (tiled ? ROWS : 1) &&
+        grid_x == (width + tile_x - 1) / tile_x &&
+        grid_y == (height + tile_y - 1) / tile_y &&
+        shared == (tiled ? tile_bytes(radius) : 0);
+    if (!fits) return static_cast<int>(cudaErrorInvalidConfiguration);
+    const dim3 grid(grid_x, grid_y);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const Planes g = {colors, normal, depth, albedo, node, out};
+    if (!row)
+        return static_cast<int>(launch_instance<false>(
+            instance, params_host, fdist_host, g, height, width, radius, grid,
+            shared, s));
+    const cudaError_t err = cudaMemcpyToSymbolAsync(
+        c_camera, row, sizeof(c_camera), 0, cudaMemcpyDeviceToDevice, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(launch_instance<true>(
+        instance, params_host, fdist_host, g, height, width, radius, grid,
+        shared, s));
 }

@@ -28,6 +28,20 @@
 // pixel, never out of bounds; such a pixel is never valid, so what it
 // reads is never used.
 //
+// Parameters.  The by-value entry copies the host's (40,) vector into
+// the launch.  The row-reading entry (ROW) takes a device pointer to its
+// slice of a frame row: the launcher copies it, device to device and in
+// stream order, into `c_row` in constant memory just before the launch,
+// so a captured CUDA graph (a copy node, then the kernel) blends by
+// whichever row the device holds there at replay.  Both instances run
+// the one body below and read their parameters from a constant bank:
+// staging the row through shared memory instead takes 42 registers, not
+// 32, so 6 blocks a SM instead of 8, and measured 28% slower on an H100
+// at 1920x1080 (PERF.md §6).  `c_row` is one per process: the copy and
+// the kernel that reads it are ordered on their stream and on no other,
+// so row-reading launches (and graphs that hold them) from two streams at
+// once would race on it.  The port renders on one stream.
+//
 // What bounds it: memory.  A pixel reads 7 planes of its own and 20
 // gathered history words (4 taps x 5 planes, neighbours of a smooth
 // reprojection, so mostly L1/L2 hits) and writes 4 planes: about
@@ -42,10 +56,13 @@ namespace {
 constexpr int BLOCK_X = 32;
 constexpr int BLOCK_Y = 8;
 
+constexpr int N_PARAMS = 40;
+
 // voxtracer_torch/engine/params.py pack_temporal_params layout
 struct Params {
-    float p[40];
+    float p[N_PARAMS];
 };
+__constant__ Params c_row;  // the row-reading entry's parameters
 
 // max(a, 0) that keeps a NaN, as torch.maximum and jnp.maximum do
 __device__ __forceinline__ float max0(float a) {
@@ -72,16 +89,18 @@ __device__ __forceinline__ int tap_index(float v, int n) {
     return i < 0 ? 0 : (i > n - 1 ? n - 1 : i);
 }
 
+template <bool ROW>
 __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y) temporal_kernel(
     const Params P, const float* __restrict__ color,
-    const float* __restrict__ normal, const float* __restrict__ depth,
-    const float* __restrict__ old_color, const float* __restrict__ old_blend,
-    const float* __restrict__ old_depth, int height, int width,
-    float* __restrict__ blended, float* __restrict__ next_blend) {
+    const float* __restrict__ normal,
+    const float* __restrict__ depth, const float* __restrict__ old_color,
+    const float* __restrict__ old_blend, const float* __restrict__ old_depth,
+    int height, int width, float* __restrict__ blended,
+    float* __restrict__ next_blend) {
     const int x = blockIdx.x * BLOCK_X + threadIdx.x;
     const int y = blockIdx.y * BLOCK_Y + threadIdx.y;
     if (x >= width || y >= height) return;
-    const float* p = P.p;
+    const float* p = ROW ? c_row.p : P.p;
     const size_t plane = (size_t)height * width;
     const size_t o = (size_t)y * width + x;
     const float pxf = (float)x, pyf = (float)y;
@@ -164,18 +183,32 @@ __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y) temporal_kernel(
 
 }  // namespace
 
+// Parameters by value (`params_host`, a host pointer) or, where
+// `params_host` is null, from device memory: `row` points at the
+// kernel's slice of a frame row.
 extern "C" int vt_temporal_launch(
-    const float* params_host, const float* color, const float* normal,
-    const float* depth, const float* old_color, const float* old_blend,
-    const float* old_depth, int height, int width, float* blended,
-    float* next_blend, void* stream) {
-    Params P;
-    memcpy(P.p, params_host, sizeof(P.p));
+    const float* params_host, const float* row, const float* color,
+    const float* normal, const float* depth, const float* old_color,
+    const float* old_blend, const float* old_depth, int height, int width,
+    float* blended, float* next_blend, void* stream) {
+    Params P = {};
     const dim3 block(BLOCK_X, BLOCK_Y);
     const dim3 grid((width + BLOCK_X - 1) / BLOCK_X,
                     (height + BLOCK_Y - 1) / BLOCK_Y);
-    temporal_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-        P, color, normal, depth, old_color, old_blend, old_depth, height,
-        width, blended, next_blend);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (params_host) {
+        memcpy(P.p, params_host, sizeof(P.p));
+        temporal_kernel<false><<<grid, block, 0, s>>>(
+            P, color, normal, depth, old_color, old_blend, old_depth, height,
+            width, blended, next_blend);
+    } else {
+        if (!row) return static_cast<int>(cudaErrorInvalidValue);
+        const cudaError_t err = cudaMemcpyToSymbolAsync(
+            c_row, row, sizeof(Params), 0, cudaMemcpyDeviceToDevice, s);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        temporal_kernel<true><<<grid, block, 0, s>>>(
+            P, color, normal, depth, old_color, old_blend, old_depth, height,
+            width, blended, next_blend);
+    }
     return static_cast<int>(cudaGetLastError());
 }

@@ -33,6 +33,21 @@
 // each thread's steps in shared memory for one reduction at the
 // block's end; PERF.md §6).
 //
+// Parameters.  The by-value entry copies the host's (32,) vector and the
+// frame number into the launch.  The row-reading entry (ROW) takes a
+// device pointer to its slice of a frame row instead: the launcher
+// copies vector and frame number, device to device and in stream order,
+// into `c_row` in constant memory just before the launch, so a captured
+// CUDA graph (a copy node, then the kernel) renders whichever row the
+// device holds there at replay.  Both instances run the one body below
+// and read their parameters from a constant bank: staging the row through
+// shared memory instead takes 97 registers, not 80, so 16 warps a SM
+// instead of 24, and measured 6% slower on an H100 at monu9 1920x1080
+// (PERF.md §6).  `c_row` is one per process: the copy and the kernel that
+// reads it are ordered on their stream and on no other, so row-reading
+// launches (and graphs that hold them) from two streams at once would
+// race on it.  The port renders on one stream.
+//
 // What bounds it: each DDA step is a chain of dependent loads (meta
 // word, then brick mask) plus divergence between the rays of a warp,
 // whose step counts differ (SIMT efficiency 0.28 at menger 720p, 0.45
@@ -69,10 +84,20 @@ constexpr int PALETTE_SLOTS = 1024;
 constexpr int BLOCK_X = 16;
 constexpr int BLOCK_Y = 16;
 
+constexpr int N_PARAMS = 32;
+
 // voxtracer_torch/engine/params.py pack_trace_params layout
 struct Params {
-    float p[32];
+    float p[N_PARAMS];
 };
+
+// the row-reading entry's parameters: the vector, then the frame number
+// (not yet reduced modulo n_slices)
+struct Row {
+    float p[N_PARAMS];
+    int frame;
+};
+__constant__ Row c_row;
 
 // voxtracer_torch/engine/scene.py SceneTables.geometry layout
 struct Geometry {
@@ -344,10 +369,11 @@ __device__ __forceinline__ void count_steps(unsigned* cnt, int phase,
     }
 }
 
+template <bool ROW>
 __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
 trace_kernel(const Params P, const Geometry g, const Tables tb,
              const int* __restrict__ palette, const float* __restrict__ noise,
-             int n_slices, int frame, int height, int width,
+             int n_slices, int frame_value, int height, int width,
              float* __restrict__ color, float* __restrict__ normal,
              float* __restrict__ albedo, float* __restrict__ depth,
              int* __restrict__ node_out,
@@ -361,6 +387,8 @@ trace_kernel(const Params P, const Geometry g, const Tables tb,
         pal[i] = palette[i];
     if (tid < N_COUNTERS) cnt[tid] = 0;
     __syncthreads();
+    const float* pp = ROW ? c_row.p : P.p;
+    const int frame = ROW ? c_row.frame % n_slices : frame_value;
 
     const int x = blockIdx.x * BLOCK_X + threadIdx.x;
     const int y = blockIdx.y * BLOCK_Y + threadIdx.y;
@@ -370,7 +398,6 @@ trace_kernel(const Params P, const Geometry g, const Tables tb,
 
     if (x < width && y < height) {
         const float TWO_PI = 2.0f * 3.14159265358979323846f;
-        const float* pp = P.p;
         const float px = (float)x, py = (float)y;
         float rdx = px * pp[3] - py * pp[6] + pp[9];
         float rdy = px * pp[4] - py * pp[7] + pp[10];
@@ -559,36 +586,51 @@ trace_kernel(const Params P, const Geometry g, const Tables tb,
 
 }  // namespace
 
+// Parameters by value (`params_host`, a host pointer, and `frame`, already
+// reduced modulo n_slices) or, where `params_host` is null, from device
+// memory: `row` points at the kernel's slice of a frame row (its vector,
+// then the frame number as an int32 bit pattern: a `Row`).
 extern "C" int vt_trace_launch(
-    const float* params_host, const int* geometry_host, const int* packed,
-    const int* meta, const int* brick, const int* palette, const float* noise,
-    int n_slices, int frame, int height, int width, float* color,
-    float* normal, float* albedo, float* depth, int* node,
+    const float* params_host, const float* row, const int* geometry_host,
+    const int* packed, const int* meta, const int* brick, const int* palette,
+    const float* noise, int n_slices, int frame, int height, int width,
+    float* color, float* normal, float* albedo, float* depth, int* node,
     unsigned long long* counters, void* stream) {
-    Params P;
-    memcpy(P.p, params_host, sizeof(P.p));
+    Params P = {};
     Geometry g;
     memcpy(&g, geometry_host, sizeof(g));
     const Tables tb = {packed, meta, brick};
     const dim3 block(BLOCK_X, BLOCK_Y);
     const dim3 grid((width + BLOCK_X - 1) / BLOCK_X,
                     (height + BLOCK_Y - 1) / BLOCK_Y);
-    trace_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-        P, g, tb, palette, noise, n_slices, frame, height, width, color,
-        normal, albedo, depth, node, counters);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (params_host) {
+        memcpy(P.p, params_host, sizeof(P.p));
+        trace_kernel<false><<<grid, block, 0, s>>>(
+            P, g, tb, palette, noise, n_slices, frame, height, width, color,
+            normal, albedo, depth, node, counters);
+    } else {
+        if (!row) return static_cast<int>(cudaErrorInvalidValue);
+        const cudaError_t err = cudaMemcpyToSymbolAsync(
+            c_row, row, sizeof(Row), 0, cudaMemcpyDeviceToDevice, s);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        trace_kernel<true><<<grid, block, 0, s>>>(
+            P, g, tb, palette, noise, n_slices, 0, height, width, color,
+            normal, albedo, depth, node, counters);
+    }
     return static_cast<int>(cudaGetLastError());
 }
 
-// The kernel's resources: out[0] registers a thread, [1] local bytes a
-// thread, [2] static shared bytes a block, [3] resident blocks per SM,
-// [4] threads a block.
+// The by-value instance's resources: out[0] registers a thread, [1] local
+// bytes a thread, [2] static shared bytes a block, [3] resident blocks per
+// SM, [4] threads a block.
 extern "C" int vt_trace_info(int* out) {
     cudaFuncAttributes a;
-    cudaError_t err = cudaFuncGetAttributes(&a, trace_kernel);
+    cudaError_t err = cudaFuncGetAttributes(&a, trace_kernel<false>);
     if (err != cudaSuccess) return static_cast<int>(err);
     int per_sm = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, trace_kernel, BLOCK_X * BLOCK_Y, 0);
+        &per_sm, trace_kernel<false>, BLOCK_X * BLOCK_Y, 0);
     if (err != cudaSuccess) return static_cast<int>(err);
     out[0] = a.numRegs;
     out[1] = (int)a.localSizeBytes;

@@ -1,7 +1,8 @@
 """Pinhole fly-camera and its ray basis (numpy).
 
 Copy of :mod:`voxtracer.engine.camera`, which cannot be imported
-without JAX (its package imports the JAX parameter pytrees).  The
+without JAX (its package imports the JAX parameter pytrees), with
+``np.cross`` written out (:func:`cross3`).  The
 per-pixel ray is ``normalize(px * right - py * up + forward)`` with the
 pixel-scaled basis from :meth:`Camera.axis_scaled`.
 """
@@ -17,6 +18,22 @@ import numpy as np
 WORLD_UP = np.array([0.0, 1.0, 0.0], dtype=np.float64)
 
 
+def cross3(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """``np.cross`` of two 3-vectors of one float type, with its
+    roundings (each product, then the difference) at a fraction of its
+    cost: a camera path computes a basis per frame on the host."""
+    a0, a1, a2 = a
+    b0, b1, b2 = b
+    return np.array([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0],
+                    dtype=a.dtype)
+
+
+def _unit(v: np.ndarray) -> np.ndarray:
+    """``v / np.linalg.norm(v)`` for a float64 vector: the norm is
+    ``sqrt(v.dot(v))`` there too."""
+    return v / math.sqrt(v.dot(v))
+
+
 @dataclasses.dataclass
 class Camera:
     position: np.ndarray = dataclasses.field(
@@ -28,11 +45,9 @@ class Camera:
     fov: float = math.radians(70.0)
 
     def axis(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        forward = np.asarray(self.direction, dtype=np.float64)
-        forward = forward / np.linalg.norm(forward)
-        right = np.cross(WORLD_UP, forward)
-        right = right / np.linalg.norm(right)
-        up = np.cross(forward, right)
+        forward = _unit(np.asarray(self.direction, dtype=np.float64))
+        right = _unit(cross3(WORLD_UP, forward))
+        up = cross3(forward, right)
         return right, up, forward
 
     def axis_scaled(
@@ -50,10 +65,10 @@ class Camera:
 
     def rows(self, width: int, height: int) -> np.ndarray:
         """(4, 3) float32 rows: origin, right, up, forward (pixel-scaled)."""
-        right, up, forward = self.axis_scaled(width, height)
-        return np.stack(
-            [np.asarray(self.position), right, up, forward]
-        ).astype(np.float32)
+        out = np.empty((4, 3), np.float32)
+        out[0] = self.position
+        out[1], out[2], out[3] = self.axis_scaled(width, height)
+        return out
 
     def with_yaw_pitch(self, yaw: float, pitch: float) -> "Camera":
         direction = np.array(

@@ -24,32 +24,55 @@ State: ``accum_color`` (3, H, W), ``accum_blend`` and ``old_depth``
 camera the history was rendered from, which the reprojection reads) and
 ``history_valid`` (bool) stay on the host, where the Renderer reads them
 without waiting for the device.
+
+Every frame reads its parameters from one packed row
+(:func:`voxtracer_torch.engine.params.pack_frame_rows`).  ``render()``
+packs the row of its one frame and hands the stages its slices on the
+host.  ``render_sequence`` / ``render_burst`` (the offline export path,
+the reference's ``lax.scan`` over ``packed_seq``) pack a whole camera
+path; on the card the rows go to the device once and every frame is one
+replay of a captured CUDA graph whose stages read the row at a device
+cursor (:class:`SequenceRunner`), on the CPU a loop over the same
+stages reads row i.  All three run :func:`frame_stages`, so a sequence
+is bit-equal to as many ``render()`` calls.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..ops import denoise as denoise_op
+from ..ops import reproject as reproject_op
 from ..ops import temporal as temporal_op
 from ..ops import tonemap
 from ..ops import trace as trace_op
 from ..ops.noise import blue_noise_buffer
 from .camera import Camera
 from .params import (
+    DENOISE_PARAMS_LEN,
     DENOISE_RADIUS_DEFAULT,
+    ROW_DENOISE,
+    ROW_FRAME,
+    ROW_LEN,
+    ROW_TEMPORAL,
+    ROW_TRACE,
+    TEMPORAL_PARAMS_LEN,
+    TRACE_PARAMS_LEN,
     DenoiseParams,
+    DeviceRow,
     RenderParams,
     TemporalParams,
-    pack_denoise_params,
-    pack_temporal_params,
-    pack_trace_params,
+    pack_frame_rows,
 )
 from .scene import GridScene, SceneTables
+
+
+# the state's tensors on the device
+STATE_PLANES = ("accum_color", "accum_blend", "old_depth")
 
 
 def init_state(height: int, width: int, device) -> Dict:
@@ -76,7 +99,7 @@ def state_from_numpy(state, device) -> Dict:
         k: torch.from_numpy(
             np.array(state[k], dtype=np.float32)
         ).to(torch.device(device))
-        for k in ("accum_color", "accum_blend", "old_depth")
+        for k in STATE_PLANES
     }
     out["old_cam"] = np.array(state["old_cam"], dtype=np.float32).reshape(4, 3)
     out["history_valid"] = bool(np.asarray(state["history_valid"]))
@@ -86,10 +109,7 @@ def state_from_numpy(state, device) -> Dict:
 def state_to_numpy(state) -> Dict[str, np.ndarray]:
     """The state as numpy arrays, keyed and laid out as the reference
     package's ``Renderer.state``."""
-    out = {
-        k: state[k].detach().cpu().numpy()
-        for k in ("accum_color", "accum_blend", "old_depth")
-    }
+    out = {k: state[k].detach().cpu().numpy() for k in STATE_PLANES}
     out["old_cam"] = np.array(state["old_cam"], np.float32)
     out["history_valid"] = np.bool_(state["history_valid"])
     return out
@@ -100,6 +120,52 @@ def camera_moved(state, cam: np.ndarray) -> bool:
     return not state["history_valid"] or not np.array_equal(
         cam, state["old_cam"]
     )
+
+
+def frame_stages(
+    history,  # (accum_color, accum_blend, old_depth)
+    tables: SceneTables,
+    noise: torch.Tensor,  # (S, 128, 128) f32 on the tables' device
+    row,  # the frame's row on the host, or its DeviceRow
+    reproject: bool,  # a moved camera meets live history
+    height: int,
+    width: int,
+    radius: int,
+    trace: Callable,
+    temporal: Callable,
+    denoise: Callable,
+):
+    """Trace, temporal blend and denoise of the frame whose parameters
+    ``row`` holds.  A numpy row gives the stages its slices by value; a
+    :class:`DeviceRow` makes every stage read the row on the device.
+    Returns ``(gbuf, blended, next_blend, out)``."""
+    if isinstance(row, DeviceRow):
+        trace_p = temporal_p = denoise_p = row
+        frame = None  # in the device row
+        still_row = row.row
+    else:
+        trace_p = row[ROW_TRACE:ROW_TRACE + TRACE_PARAMS_LEN]
+        temporal_p = row[ROW_TEMPORAL:ROW_TEMPORAL + TEMPORAL_PARAMS_LEN]
+        denoise_p = row[ROW_DENOISE:ROW_DENOISE + DENOISE_PARAMS_LEN]
+        frame = int(row[ROW_FRAME:ROW_FRAME + 1].view(np.int32)[0])
+        still_row = row
+    gbuf = trace(tables, trace_p, noise, frame, height, width)
+    planes = (gbuf["color"], gbuf["normal"], gbuf["depth"], *history)
+    if reproject:
+        blended, next_blend = temporal(*planes, temporal_p)
+    else:
+        blended, next_blend = temporal_op.temporal_blend_still_row(
+            *planes, still_row)
+    out = denoise(
+        blended,
+        gbuf["normal"],
+        gbuf["depth"],
+        gbuf["albedo"],
+        gbuf["node"],
+        denoise_p,
+        radius,
+    )
+    return gbuf, blended, next_blend, out
 
 
 def render_frame(
@@ -122,42 +188,14 @@ def render_frame(
     """One frame: ``(state, outputs)``.  ``trace``, ``temporal`` (the
     reprojecting blend) and ``denoise`` are the device stages; only a
     comparison of the kernels with their plain versions replaces them."""
-    gbuf = trace(
-        tables,
-        pack_trace_params(cam, render_params),
-        noise,
-        frame_number,
-        height,
-        width,
-    )
-    history = (state["accum_color"], state["accum_blend"], state["old_depth"])
-    if state["history_valid"] and camera_moved(state, cam):
-        blended, next_blend = temporal(
-            gbuf["color"],
-            gbuf["normal"],
-            gbuf["depth"],
-            *history,
-            pack_temporal_params(cam, state["old_cam"], temporal_params, True),
-        )
-    else:
-        blended, next_blend = temporal_op.temporal_blend_still_planar(
-            gbuf["color"],
-            gbuf["normal"],
-            gbuf["depth"],
-            *history,
-            cam,
-            state["old_cam"],
-            temporal_params,
-            state["history_valid"],
-        )
-    out = denoise(
-        blended,
-        gbuf["normal"],
-        gbuf["depth"],
-        gbuf["albedo"],
-        gbuf["node"],
-        pack_denoise_params(cam, denoise_params),
-        radius,
+    row = pack_frame_rows(
+        [cam], state["old_cam"], state["history_valid"], frame_number,
+        render_params, temporal_params, denoise_params,
+    )[0]
+    gbuf, blended, next_blend, out = frame_stages(
+        tuple(state[k] for k in STATE_PLANES), tables, noise, row,
+        state["history_valid"] and camera_moved(state, cam),
+        height, width, radius, trace, temporal, denoise,
     )
     new_state = {
         "accum_color": blended,
@@ -185,6 +223,143 @@ def render_frame(
     return new_state, outputs
 
 
+# The frame kernels' wrappers: a replayed graph adds what they counted
+# while it was captured.  A stage swapped for another callable is
+# accounted as far as it launches through these.
+COUNTED_KERNELS = (
+    trace_op.render_sample_cuda,
+    temporal_op.temporal_blend_reproject_cuda,
+    denoise_op.denoise_cuda,
+    reproject_op.resample_cuda,
+)
+
+
+class SequenceRunner:
+    """A camera path's frames on the card, one CUDA-graph replay each.
+
+    A captured graph freezes every address and every by-value kernel
+    argument, so what changes from frame to frame lives in buffers this
+    object owns: the path's rows and a device cursor into them, the
+    carried state (the blend of a frame is copied into it at the frame's
+    end: the temporal kernel gathers neighbours of the history and
+    cannot blend in place), and the u8 frames, written at a device slot
+    that advances by a device step (1 for a sequence, 0 for a burst,
+    which so holds one image whatever its length).  The last nodes of
+    the graph advance cursor and slot, so one graph per kind of frame
+    (still blend, reprojecting blend) serves any segment length.
+
+    The graphs are captured after one eager frame has built the kernels
+    and set their attributes.  They share one memory pool: each frame's
+    results are copied into the static buffers before the next replay.
+    A failed capture or replay raises; nothing falls back to the loop.
+    Captures and replays go to the current stream, and the row-reading
+    kernels stage their rows in one constant-memory slot per process: one
+    stream renders at a time.
+    """
+
+    def __init__(self, key, tables, noise, height, width, radius, trace,
+                 temporal, denoise):
+        self.key = key
+        self.tables, self.noise = tables, noise
+        self.height, self.width, self.radius = height, width, radius
+        self.trace, self.temporal, self.denoise = trace, temporal, denoise
+        dev = tables.device
+        self.state = {k: v for k, v in init_state(height, width, dev).items()
+                      if k in STATE_PLANES}
+        self.cursor = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.slot = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.step = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.rows = torch.zeros((0, ROW_LEN), dtype=torch.float32, device=dev)
+        self.frames = torch.zeros((0, height, width, 3), dtype=torch.uint8,
+                                  device=dev)
+        self.host_row = None
+        self.graphs: Dict[bool, Tuple[torch.cuda.CUDAGraph, List[int]]] = {}
+        self.pool = None
+
+    def load_rows(self, rows: np.ndarray, n_frames: int):
+        """Room for these rows and ``n_frames`` images, and the rows on
+        the device.  Buffers that grow move, which drops the graphs."""
+        dev = self.rows.device
+        if len(rows) > len(self.rows) or n_frames > len(self.frames):
+            self.graphs, self.pool = {}, None
+            if len(rows) > len(self.rows):
+                self.rows = torch.zeros((len(rows), ROW_LEN),
+                                        dtype=torch.float32, device=dev)
+            if n_frames > len(self.frames):
+                self.frames = torch.zeros(
+                    (n_frames, self.height, self.width, 3),
+                    dtype=torch.uint8, device=dev)
+        self.rows[:len(rows)].copy_(torch.from_numpy(rows))
+        self.host_row = rows[0].copy()
+
+    def load_state(self, state: Dict, stack: bool):
+        """The carried state in, cursor and slot at the start."""
+        for k in STATE_PLANES:
+            self.state[k].copy_(state[k])
+        self.cursor.zero_()
+        self.slot.zero_()
+        self.step.fill_(int(stack))
+
+    def frame(self, reproject: bool):
+        """The frame at the cursor, then the cursor and slot advanced;
+        every operation on the device, none waiting for the host."""
+        row = DeviceRow(self.rows.index_select(0, self.cursor)[0],
+                        self.host_row)
+        gbuf, blended, next_blend, out = frame_stages(
+            tuple(self.state[k] for k in STATE_PLANES), self.tables,
+            self.noise, row, reproject, self.height, self.width,
+            self.radius, self.trace, self.temporal, self.denoise,
+        )
+        image = tonemap.to_u8_planar_cropped(out, self.height, self.width)
+        self.frames.index_copy_(0, self.slot, image[None])
+        self.state["accum_color"].copy_(blended)
+        self.state["accum_blend"].copy_(next_blend)
+        self.state["old_depth"].copy_(gbuf["depth"])
+        self.cursor.add_(1)
+        self.slot.add_(self.step)
+
+    def capture(self, reproject: bool):
+        """The graph of this kind of frame, unless it is there: one
+        eager frame first (it builds the kernels and sets their
+        attributes; it also overwrites state and cursor, so captures
+        come before :meth:`load_state`), then the capture, which
+        launches nothing: the launches the wrappers counted during it
+        become the graph's count per replay."""
+        if reproject in self.graphs:
+            return
+        self.cursor.zero_()
+        self.slot.zero_()
+        self.frame(reproject)
+        self.cursor.zero_()
+        self.slot.zero_()
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        before = [k.launches for k in COUNTED_KERNELS]
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool):
+                self.frame(reproject)
+            per_replay = [k.launches - n
+                          for k, n in zip(COUNTED_KERNELS, before)]
+        finally:  # a capture that raised launched nothing either
+            for kernel, n in zip(COUNTED_KERNELS, before):
+                kernel.launches = n
+        self.graphs[reproject] = (graph, per_replay)
+
+    def run(self, segments, graph: bool):
+        """Every frame of the loaded path, segment by segment."""
+        for start, end, reproject in segments:
+            if not graph:
+                for _ in range(start, end):
+                    self.frame(reproject)
+                continue
+            captured, per_replay = self.graphs[reproject]
+            for _ in range(start, end):
+                captured.replay()
+            for kernel, n in zip(COUNTED_KERNELS, per_replay):
+                kernel.launches += n * (end - start)
+
+
 @dataclasses.dataclass
 class Renderer:
     """Host-side frame loop: owns the scene tables, noise and state on
@@ -192,7 +367,10 @@ class Renderer:
     still-sample counters, camera-motion detection, scene swap, resize).
     ``device="cuda"`` without a usable GPU raises.  ``trace``,
     ``temporal`` and ``denoise`` are the frame's device stages (see
-    :func:`render_frame`)."""
+    :func:`render_frame`).  ``render`` is the realtime frame;
+    ``render_sequence`` and ``render_burst`` render a camera path known
+    up front with one host call, and leave state and counters as that
+    many ``render`` calls would."""
 
     scene: GridScene
     height: int
@@ -224,6 +402,7 @@ class Renderer:
         self.state = init_state(self.height, self.width, self.device)
         self.frame_number = 0
         self.still_sample = 0
+        self._runner: Optional[SequenceRunner] = None
 
     def set_scene(self, scene: GridScene):
         """Swap scenes and restart accumulation."""
@@ -232,8 +411,10 @@ class Renderer:
         self.reset_accumulation()
 
     def reset_accumulation(self):
+        """Fresh state; the sequence path's buffers and graphs go too."""
         self.state = init_state(self.height, self.width, self.device)
         self.still_sample = 0
+        self._runner = None
 
     def resize(self, height: int, width: int):
         """Restart accumulation at a new image size (history is
@@ -271,3 +452,133 @@ class Renderer:
         self.frame_number += 1
         self.still_sample = 1 if moved else self.still_sample + 1
         return outputs
+
+    def _pack_sequence(self, cameras: Sequence[Camera]):
+        """A camera path's rows, its per-frame reproject flags (True
+        where a moved camera meets live history), and the
+        ``still_sample`` and last camera rows that it ends on."""
+        if not len(cameras):
+            raise ValueError("render_sequence needs at least one camera")
+        # one basis per camera object: a burst repeats one
+        basis = {id(c): c for c in cameras}
+        basis = {k: c.rows(self.width, self.height) for k, c in basis.items()}
+        cams = np.stack([basis[id(c)] for c in cameras])
+        valid = self.state["history_valid"]
+        rows = pack_frame_rows(
+            cams, self.state["old_cam"], valid, self.frame_number + 1,
+            self.render_params, self.temporal_params, self.denoise_params,
+        )
+        # frame i moved unless history is live and was rendered from its
+        # camera: frame i - 1's, or for the first frame the state's
+        moved = np.ones(len(cams), bool)
+        moved[1:] = (cams[1:] != cams[:-1]).any(axis=(1, 2))
+        moved[0] = camera_moved(self.state, cams[0])
+        flags = moved.copy()
+        flags[0] = moved[0] and valid
+        still = self.still_sample
+        for m in moved.tolist():
+            still = 1 if m else still + 1
+        return rows, flags.tolist(), still, cams[-1]
+
+    @staticmethod
+    def _segments(flags):
+        """Run-length encode the per-frame reproject flags into
+        ``(start, end, reproject)`` segments: each runs one kind of
+        frame, the still blend or the reprojecting blend."""
+        segs = []
+        start = 0
+        for i in range(1, len(flags)):
+            if flags[i] != flags[start]:
+                segs.append((start, i, flags[start]))
+                start = i
+        segs.append((start, len(flags), flags[start]))
+        return segs
+
+    def _finish_sequence(self, n: int, still: int, last_cam: np.ndarray):
+        self.frame_number += n
+        self.still_sample = still
+        self.state["old_cam"] = np.array(last_cam, np.float32)
+        self.state["history_valid"] = True
+
+    def _sequence_runner(self) -> SequenceRunner:
+        """The runner of this configuration; a new one, without graphs,
+        once anything that a capture freezes has changed."""
+        p = self.denoise_params
+        key = (
+            self.height, self.width, self.denoise_radius, id(self.tables),
+            id(self.noise), self.trace, self.temporal, self.denoise,
+            # by value in the denoise kernel's launch
+            (p.sigma_distance, p.sigma_range, p.albedo_factor)
+            if self.denoise_radius else None,
+        )
+        if self._runner is None or self._runner.key != key:
+            self._runner = SequenceRunner(
+                key, self.tables, self.noise, self.height, self.width,
+                self.denoise_radius, self.trace, self.temporal, self.denoise,
+            )
+        return self._runner
+
+    def _run_sequence(self, cameras, stack: bool, graph: bool):
+        """The frames of a camera path: all of them stacked, or the last
+        one.  State and counters advance as in ``len(cameras)`` calls of
+        :meth:`render`."""
+        rows, flags, still, last = self._pack_sequence(cameras)
+        n = len(rows)
+        if self.device.type == "cuda":
+            segments = self._segments(flags)
+            runner = self._sequence_runner()
+            runner.load_rows(rows, n if stack else 1)
+            if graph:
+                for reproject in sorted({seg[2] for seg in segments}):
+                    runner.capture(reproject)
+            runner.load_state(self.state, stack)
+            runner.run(segments, graph)
+            # out of the buffers the next sequence overwrites
+            self.state.update(
+                {k: runner.state[k].clone() for k in STATE_PLANES})
+            frames = (runner.frames[:n] if stack else runner.frames[0]).clone()
+        else:
+            history = tuple(self.state[k] for k in STATE_PLANES)
+            images = []
+            for row, reproject in zip(rows, flags):
+                gbuf, blended, next_blend, out = frame_stages(
+                    history, self.tables, self.noise, row, reproject,
+                    self.height, self.width, self.denoise_radius, self.trace,
+                    self.temporal, self.denoise,
+                )
+                history = (blended, next_blend, gbuf["depth"])
+                image = tonemap.to_u8_planar_cropped(
+                    out, self.height, self.width)
+                if stack:
+                    images.append(image)
+                else:
+                    images = [image]
+            self.state.update(zip(STATE_PLANES, history))
+            frames = torch.stack(images) if stack else images[0]
+        self._finish_sequence(n, still, last)
+        return frames
+
+    def render_sequence(
+        self, cameras: Sequence[Camera], graph: bool = True
+    ) -> torch.Tensor:
+        """Render ``len(cameras)`` frames with one host call; returns the
+        (N, H, W, 3) u8 frames on the device.
+
+        On the card the path's rows go to the device once and each frame
+        is one replay of a captured CUDA graph (one graph per kind of
+        frame, whatever the path's length; a path that alternates
+        between still and moving frames only costs more replay calls).
+        A failed capture or replay raises.  ``graph=False`` runs the
+        same frames eagerly, for comparisons.  On the CPU there is no
+        graph: a loop over the same stages.  The frames stay on the
+        device: at 3840x2160 a frame is 24 MB, so split long exports
+        into several calls."""
+        return self._run_sequence(cameras, True, graph)
+
+    def render_burst(
+        self, camera: Camera, n: int, graph: bool = True
+    ) -> torch.Tensor:
+        """``n`` accumulation passes at one camera with one host call;
+        returns the last (H, W, 3) u8 frame.  The frames before it are
+        never kept: a burst holds one image whatever its length."""
+        return self._run_sequence([camera] * n, False, graph)

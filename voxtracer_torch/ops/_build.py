@@ -118,23 +118,26 @@ def load() -> ctypes.CDLL:
     point's C signature."""
     lib = ctypes.CDLL(build())
     p, i = ctypes.c_void_p, ctypes.c_int
-    # vt_trace_launch(params, geometry, packed, meta, brick, palette,
+    # Each frame kernel takes its parameters by value (params, a host
+    # pointer) or, where that is null (for the denoise: besides it), from
+    # its slice of a frame row on the device (row).
+    # vt_trace_launch(params, row, geometry, packed, meta, brick, palette,
     #   noise, n_slices, frame, height, width, color, normal, albedo,
     #   depth, node, counters, stream) -> cudaError_t
-    lib.vt_trace_launch.argtypes = [p] * 7 + [i] * 4 + [p] * 6 + [p]
+    lib.vt_trace_launch.argtypes = [p] * 8 + [i] * 4 + [p] * 6 + [p]
     lib.vt_trace_launch.restype = ctypes.c_int
     # vt_trace_info(out[5])
     lib.vt_trace_info.argtypes = [p]
     lib.vt_trace_info.restype = ctypes.c_int
-    # vt_temporal_launch(params, color, normal, depth, old_color,
+    # vt_temporal_launch(params, row, color, normal, depth, old_color,
     #   old_blend, old_depth, height, width, blended, next_blend,
     #   stream) -> cudaError_t
-    lib.vt_temporal_launch.argtypes = [p] * 7 + [i] * 2 + [p] * 3
+    lib.vt_temporal_launch.argtypes = [p] * 8 + [i] * 2 + [p] * 3
     lib.vt_temporal_launch.restype = ctypes.c_int
-    # vt_denoise_launch(params, fdist, colors, normal, depth, albedo,
+    # vt_denoise_launch(params, fdist, row, colors, normal, depth, albedo,
     #   node, height, width, radius, instance, block_x, block_y, rows,
     #   grid_x, grid_y, shared, out, stream) -> cudaError_t
-    lib.vt_denoise_launch.argtypes = [p] * 7 + [i] * 10 + [p] * 2
+    lib.vt_denoise_launch.argtypes = [p] * 8 + [i] * 10 + [p] * 2
     lib.vt_denoise_launch.restype = ctypes.c_int
     # vt_resample_launch(hist, px_f, py_f, channels, height, width,
     #   sampled, ok, stream) -> cudaError_t

@@ -2,7 +2,9 @@
 
 Counterpart of ``voxtracer.ops.denoise_pallas.denoise``.  Radius 0 (the
 Renderer default) is the albedo remodulation alone
-(``denoise.comp:90``), elementwise plain torch on any device.  For
+(``denoise.comp:90``), elementwise plain torch on any device
+(:func:`modulate_row` where the factor comes from a frame row on the
+device, as inside a captured CUDA graph).  For
 radius r >= 1 a (2r+1)^2 cross-bilateral stencil runs first:
 
 * :func:`denoise_plain` — the stencil of ``voxtracer.ops.denoise.denoise``
@@ -16,7 +18,8 @@ radius r >= 1 a (2r+1)^2 cross-bilateral stencil runs first:
   :func:`factor_dist_table`'s.
 * :func:`denoise` — radius 0, or one of the two by the tensors' device.
 
-All read the (16,) vector of ``engine.params.pack_denoise_params``.
+All read the (16,) vector of ``engine.params.pack_denoise_params``; the
+kernel's wrapper and the dispatcher also take a ``DeviceRow``.
 """
 
 from __future__ import annotations
@@ -27,7 +30,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..engine.params import DENOISE_PARAMS_LEN, check_params
+from ..engine.params import (
+    DENOISE_PARAMS_LEN,
+    ROW_DENOISE,
+    ROW_KEEP_ALBEDO,
+    DeviceRow,
+    check_params,
+)
 from .trace import _div, _max0, _norm_div3
 
 
@@ -61,6 +70,17 @@ def _modulate(out, albedo, factor: float):
     """out * (1 - f + f * albedo) (denoise_pallas.py:228-237)."""
     f = np.float32(factor)
     return out * (float(np.float32(1.0) - f) + float(f) * albedo)
+
+
+def modulate_row(out, albedo, row: torch.Tensor):
+    """The same modulate with ``f`` and ``1 - f`` (formed on the host)
+    read as 0-dim views of a frame row on the planes' device, so that a
+    captured CUDA graph modulates by whichever row was gathered.
+    Bit-equal to :func:`_modulate` on the row's factor."""
+    if row.device != out.device or row.dtype != torch.float32:
+        raise ValueError(
+            f"row is {row.dtype} on {row.device}, planes on {out.device}")
+    return out * (row[ROW_KEEP_ALBEDO] + row[ROW_DENOISE + 14] * albedo)
 
 
 def denoise_plain(
@@ -133,12 +153,15 @@ def denoise_plain(
 # down its column, so a block owns a 32x32 tile; the tile and an r-wide
 # halo sit in shared memory as 8 float32 planes.  Radii 1-8 have a
 # template instance of their own; larger radii run instance 0, which
-# takes the radius at run time.
+# takes the radius at run time.  Above r = 26 the haloed tile no longer
+# fits a block's shared memory: instance GLOBAL_INSTANCE computes one
+# output a thread and reads every tap from global memory.
 BLOCK = (32, 8)
 ROWS_PER_THREAD = 4
 STATIC_RADII = 8
 TILE_PLANES = 8
 MAX_SHARED_BYTES = 232_448  # a block's shared memory on an H100
+GLOBAL_INSTANCE = -1
 
 
 class TilePlan(NamedTuple):
@@ -154,13 +177,22 @@ def tile_plan(height: int, width: int, radius: int) -> TilePlan:
     template instance, block, grid, outputs per thread and dynamic
     shared bytes (the haloed tile's planes)."""
     tile_w, tile_h = BLOCK[0], BLOCK[1] * ROWS_PER_THREAD
+    shared_bytes = (TILE_PLANES * 4 * (tile_w + 2 * radius)
+                    * (tile_h + 2 * radius))
+    if shared_bytes > MAX_SHARED_BYTES:
+        return TilePlan(
+            instance=GLOBAL_INSTANCE,
+            block=BLOCK,
+            grid=(-(-width // BLOCK[0]), -(-height // BLOCK[1])),
+            rows_per_thread=1,
+            shared_bytes=0,
+        )
     return TilePlan(
         instance=radius if radius <= STATIC_RADII else 0,
         block=BLOCK,
         grid=(-(-width // tile_w), -(-height // tile_h)),
         rows_per_thread=ROWS_PER_THREAD,
-        shared_bytes=TILE_PLANES * 4 * (tile_w + 2 * radius)
-        * (tile_h + 2 * radius),
+        shared_bytes=shared_bytes,
     )
 
 
@@ -178,23 +210,29 @@ def denoise_cuda(
     depth: torch.Tensor,
     albedo: torch.Tensor,
     node: torch.Tensor,
-    params: np.ndarray,
+    params,  # (16,) f32 vector, or a frame's DeviceRow
     radius: int,
 ) -> torch.Tensor:
     """The same stencil and modulate from the hand-written CUDA kernel
-    (csrc/denoise.cu).  Launches on the current stream and does not
-    synchronise.  Raises if an input is not what the kernel takes, the
-    radius's tile does not fit a block's shared memory, or the launch is
-    refused."""
+    (csrc/denoise.cu).  ``params`` is the host's vector, passed by
+    value, or a :class:`~voxtracer_torch.engine.params.DeviceRow`: the
+    sigmas, the albedo factor and the ``factor_dist`` table, constant
+    over a camera path, then come by value from its host row, and the
+    kernel's row-reading entry takes the camera rows from the row on the
+    device.  Launches on the current stream and does not
+    synchronise.  Raises if an input is not what the kernel takes or the
+    launch is refused."""
     _check_inputs(colors, normal, depth, albedo, node, radius)
+    row = None
+    if isinstance(params, DeviceRow):
+        if params.row.device != depth.device:
+            raise ValueError(
+                f"row on {params.row.device}, depth on {depth.device}")
+        row = params.pointer(ROW_DENOISE)
+        params = params.host[ROW_DENOISE:ROW_DENOISE + DENOISE_PARAMS_LEN]
     params = check_params(params, DENOISE_PARAMS_LEN)
     height, width = depth.shape
     plan = tile_plan(height, width, int(radius))
-    if plan.shared_bytes > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"radius {radius}: its haloed tile needs {plan.shared_bytes} "
-            f"shared bytes, a block has {MAX_SHARED_BYTES}"
-        )
     if depth.device.type != "cuda":
         raise ValueError(f"CUDA kernel given tensors on {depth.device}")
     ins = (colors, normal, depth, albedo, node)
@@ -203,13 +241,16 @@ def denoise_cuda(
     from . import _build
 
     launch = _build.load().vt_denoise_launch
-    fdist = factor_dist_table(int(radius), params[12])
+    # the tiled instances' table; GLOBAL_INSTANCE computes it per tap
+    fdist = (factor_dist_table(int(radius), params[12])
+             if plan.instance != GLOBAL_INSTANCE else np.zeros(1, np.float32))
     out = torch.empty_like(colors)
     with torch.cuda.device(depth.device):
         stream = torch.cuda.current_stream(depth.device).cuda_stream
         err = launch(
             params.ctypes.data,
             fdist.ctypes.data,
+            row,
             *(t.data_ptr() for t in ins),
             height,
             width,
@@ -237,13 +278,15 @@ def denoise(
     depth: torch.Tensor,
     albedo: torch.Tensor,
     node: torch.Tensor,
-    params: np.ndarray,
+    params,  # (16,) f32 vector, or a frame's DeviceRow
     radius: int,
 ) -> torch.Tensor:
     """The denoise stage on the tensors' device.  Radius 0 is the
     modulate alone; otherwise the plain stencil for CPU tensors and the
     CUDA kernel for CUDA tensors."""
     if radius == 0:
+        if isinstance(params, DeviceRow):
+            return modulate_row(colors, albedo, params.row)
         return _modulate(colors, albedo,
                          check_params(params, DENOISE_PARAMS_LEN)[14])
     args = (colors, normal, depth, albedo, node, params, radius)

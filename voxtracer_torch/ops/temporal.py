@@ -5,6 +5,10 @@ blend of a moved camera.
   ``voxtracer.ops.temporal.temporal_blend_still_planar``
   (``temporal.comp:99-124`` with the identity reprojection): elementwise
   plain torch on any device, as XLA fused it in the reference.
+  :func:`temporal_blend_still_row` is the same blend reading its cameras
+  and constants from one frame row (``engine.params.pack_frame_rows``):
+  the form the frame function runs, on the host's row or, inside a
+  captured CUDA graph, on 0-dim views of the row on the device.
 * :func:`temporal_blend_reproject_plain` — counterpart of
   ``voxtracer.ops.temporal.temporal_blend`` with ``reproject=True,
   resample_impl="xla"`` (the any-offset path): each first-hit point is
@@ -31,7 +35,9 @@ blend of a moved camera.
   (``app/bench.py``) times it; the renderer's frames do not run it.
 
 The reprojecting functions read the (40,) vector of
-``engine.params.pack_temporal_params``, whose inverse the host computes.
+``engine.params.pack_temporal_params``, whose inverse the host computes;
+the kernel's wrapper also takes a ``DeviceRow``, and the kernel then
+reads that vector from device memory.
 """
 
 from __future__ import annotations
@@ -42,7 +48,11 @@ import numpy as np
 import torch
 
 from ..engine.params import (
+    ROW_KEEP_FLOOR,
+    ROW_KEEP_SAMPLE,
+    ROW_TEMPORAL,
     TEMPORAL_PARAMS_LEN,
+    DeviceRow,
     TemporalParams,
     check_params,
     pack_temporal_params,
@@ -51,22 +61,20 @@ from .reproject import resample, resample_plain
 from .trace import _div, _max0, _norm_div3, as_f32, sqrt_f32
 
 
-def temporal_blend_still_planar(
-    sampled_color: torch.Tensor,  # (3, H, W) current trace output
-    normal: torch.Tensor,  # (3, H, W) current first-hit normals
-    depth: torch.Tensor,  # (H, W) current first-hit depth
-    old_color: torch.Tensor,  # (3, H, W) history color
-    old_blend: torch.Tensor,  # (H, W) history blending (alpha)
-    old_depth: torch.Tensor,  # (H, W) history depth
-    cam: np.ndarray,  # (4, 3) f32: origin, right, up, forward (scaled)
-    old_cam: np.ndarray,  # (4, 3) f32
-    params,  # TemporalParams
-    history_valid: bool,
+def _blend_still(
+    sampled_color, normal, depth, old_color, old_blend, old_depth,
+    cam, old_cam, cutoff, keep_sample, keep_floor, history_valid,
 ):
-    """Returns ``(blended (3, H, W), next_blending (H, W))``."""
+    """The still blend's one body.  ``cam`` and ``old_cam`` are 4 x 3
+    scalars; these, ``cutoff``, ``keep_sample`` (1 - sample_blending),
+    ``keep_floor`` (1 - maximum_blending) and ``history_valid`` are all
+    Python numbers holding float32 values, or all 0-dim tensors on the
+    planes' device.  Both kinds give the same bits: a tensor times a
+    Python number is computed in float32, and nothing here divides by
+    one."""
     height, width = depth.shape
-    origin, right, up, forward = ([float(v) for v in r] for r in cam)
-    o_origin, o_right, o_up, o_forward = ([float(v) for v in r] for r in old_cam)
+    origin, right, up, forward = cam
+    o_origin, o_right, o_up, o_forward = old_cam
     dev = depth.device
     px = torch.arange(width, device=dev, dtype=torch.float32)[None, :]
     py = torch.arange(height, device=dev, dtype=torch.float32)[:, None]
@@ -100,9 +108,9 @@ def temporal_blend_still_planar(
     dy = owy - wy
     dz = owz - wz
     dist = sqrt_f32(dx * dx + dy * dy + dz * dz)
-    same_position = dist < bias * as_f32(params.blending_distance_cutoff) * depth
+    same_position = dist < bias * cutoff * depth
 
-    valid = same_position & (depth >= 0) & bool(history_valid)
+    valid = same_position & (depth >= 0) & history_valid
     use_color = torch.where(valid[None], old_color, 0.0)
     blending = torch.where(valid, old_blend, 1.0)
     blended = torch.where(
@@ -110,12 +118,64 @@ def temporal_blend_still_planar(
         use_color * (1.0 - blending[None]) + sampled_color * blending[None],
         sampled_color,
     )
-    next_blending = torch.clamp(
-        as_f32(np.float32(1.0) - np.float32(params.sample_blending)) * blending,
-        as_f32(np.float32(1.0) - np.float32(params.maximum_blending)),
-        1.0,
-    )
+    # torch.clamp takes two numbers or two tensors, never one of each
+    one = torch.ones_like(keep_floor) if torch.is_tensor(keep_floor) else 1.0
+    next_blending = torch.clamp(keep_sample * blending, keep_floor, one)
     return blended, next_blending
+
+
+def temporal_blend_still_planar(
+    sampled_color: torch.Tensor,  # (3, H, W) current trace output
+    normal: torch.Tensor,  # (3, H, W) current first-hit normals
+    depth: torch.Tensor,  # (H, W) current first-hit depth
+    old_color: torch.Tensor,  # (3, H, W) history color
+    old_blend: torch.Tensor,  # (H, W) history blending (alpha)
+    old_depth: torch.Tensor,  # (H, W) history depth
+    cam: np.ndarray,  # (4, 3) f32: origin, right, up, forward (scaled)
+    old_cam: np.ndarray,  # (4, 3) f32
+    params,  # TemporalParams
+    history_valid: bool,
+):
+    """Returns ``(blended (3, H, W), next_blending (H, W))``."""
+    one = np.float32(1.0)
+    return _blend_still(
+        sampled_color, normal, depth, old_color, old_blend, old_depth,
+        [[float(v) for v in r] for r in cam],
+        [[float(v) for v in r] for r in old_cam],
+        as_f32(params.blending_distance_cutoff),
+        as_f32(one - np.float32(params.sample_blending)),
+        as_f32(one - np.float32(params.maximum_blending)),
+        bool(history_valid),
+    )
+
+
+def temporal_blend_still_row(
+    sampled_color: torch.Tensor,
+    normal: torch.Tensor,
+    depth: torch.Tensor,
+    old_color: torch.Tensor,
+    old_blend: torch.Tensor,
+    old_depth: torch.Tensor,
+    row,  # (ROW_LEN,) f32, one row of engine.params.pack_frame_rows
+):
+    """The still blend reading one frame row: a numpy row on the host
+    (its values as Python numbers) or a tensor on the planes' device (its
+    values as 0-dim views, so that a captured CUDA graph blends whichever
+    row was gathered).  Bit-equal to :func:`temporal_blend_still_planar`
+    on the row's cameras and constants."""
+    if torch.is_tensor(row):
+        if row.device != depth.device or row.dtype != torch.float32:
+            raise ValueError(
+                f"row is {row.dtype} on {row.device}, depth on {depth.device}")
+    else:
+        row = [float(v) for v in row]
+    t = row[ROW_TEMPORAL:ROW_TEMPORAL + TEMPORAL_PARAMS_LEN]
+    return _blend_still(
+        sampled_color, normal, depth, old_color, old_blend, old_depth,
+        [t[3 * i:3 * i + 3] for i in range(4)],
+        [t[12 + 3 * i:15 + 3 * i] for i in range(4)],
+        t[35], row[ROW_KEEP_SAMPLE], row[ROW_KEEP_FLOOR], t[36] > 0.0,
+    )
 
 
 def _check_planes(sampled_color, normal, depth, old_color, old_blend,
@@ -243,15 +303,25 @@ def temporal_blend_reproject_cuda(
     old_color: torch.Tensor,
     old_blend: torch.Tensor,
     old_depth: torch.Tensor,
-    params: np.ndarray,
+    params,  # (40,) f32 vector, or a frame's DeviceRow
 ):
     """The same blend from the hand-written CUDA kernel
-    (csrc/temporal.cu).  Launches on the current stream and does not
+    (csrc/temporal.cu).  ``params`` is the host's vector, passed by
+    value, or a :class:`~voxtracer_torch.engine.params.DeviceRow`: the
+    kernel's row-reading entry then takes its vector from the row on the
+    device.  Launches on the current stream and does not
     synchronise.  Raises if an input is not what the kernel takes or the
     launch is refused."""
     _check_planes(sampled_color, normal, depth, old_color, old_blend,
                   old_depth)
-    params = check_params(params, TEMPORAL_PARAMS_LEN)
+    if isinstance(params, DeviceRow):
+        if params.row.device != depth.device:
+            raise ValueError(
+                f"row on {params.row.device}, depth on {depth.device}")
+        source = (None, params.pointer(ROW_TEMPORAL))
+    else:
+        params = check_params(params, TEMPORAL_PARAMS_LEN)
+        source = (params.ctypes.data, None)
     if depth.device.type != "cuda":
         raise ValueError(f"CUDA kernel given tensors on {depth.device}")
     ins = (sampled_color, normal, depth, old_color, old_blend, old_depth)
@@ -266,7 +336,7 @@ def temporal_blend_reproject_cuda(
     with torch.cuda.device(depth.device):
         stream = torch.cuda.current_stream(depth.device).cuda_stream
         err = launch(
-            params.ctypes.data,
+            *source,
             *(t.data_ptr() for t in ins),
             height,
             width,
@@ -290,7 +360,7 @@ def temporal_blend_reproject(
     old_color: torch.Tensor,
     old_blend: torch.Tensor,
     old_depth: torch.Tensor,
-    params: np.ndarray,
+    params,
 ):
     """The reprojecting blend on the tensors' device: the plain version
     for CPU tensors, the CUDA kernel for CUDA tensors."""

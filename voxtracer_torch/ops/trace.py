@@ -38,7 +38,12 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from ..engine.params import TRACE_PARAMS_LEN, check_params
+from ..engine.params import (
+    ROW_TRACE,
+    TRACE_PARAMS_LEN,
+    DeviceRow,
+    check_params,
+)
 from ..engine.scene import SceneTables
 
 MAX_BOUNCES = 3
@@ -333,8 +338,7 @@ def _node_rgb(node):
     return r, g, b
 
 
-def _check_inputs(tables, params, noise, height, width):
-    params = check_params(params, TRACE_PARAMS_LEN)
+def _check_inputs(tables, noise, height, width):
     if noise.dtype != torch.float32 or noise.dim() != 3 or tuple(
         noise.shape[1:]
     ) != (NOISE_SIZE, NOISE_SIZE):
@@ -348,7 +352,6 @@ def _check_inputs(tables, params, noise, height, width):
         )
     if height <= 0 or width <= 0:
         raise ValueError(f"invalid size {width}x{height}")
-    return params
 
 
 def render_sample_plain(
@@ -360,8 +363,9 @@ def render_sample_plain(
     width: int,
 ) -> Dict[str, torch.Tensor]:
     """One path-traced sample per pixel with plain torch ops."""
-    params = _check_inputs(tables, params, noise, height, width)
-    P = [float(v) for v in params]  # exact float32 values
+    _check_inputs(tables, noise, height, width)
+    # exact float32 values
+    P = [float(v) for v in check_params(params, TRACE_PARAMS_LEN)]
     dev = tables.device
     f32 = torch.float32
     n = height * width
@@ -539,17 +543,24 @@ def render_sample_plain(
 
 def render_sample_cuda(
     tables: SceneTables,
-    params: np.ndarray,
+    params,  # (32,) f32 vector, or a frame's DeviceRow
     noise: torch.Tensor,
-    frame: int,
+    frame,  # int; ignored with a DeviceRow, which holds the frame number
     height: int,
     width: int,
 ) -> Dict[str, torch.Tensor]:
     """The same sample from the hand-written CUDA kernel (csrc/trace.cu).
 
-    Launches on the current stream and does not synchronise.  Raises if
-    an input is not what the kernel takes or the launch is refused."""
-    params = _check_inputs(tables, params, noise, height, width)
+    ``params`` is the host's vector, passed by value with ``frame``, or
+    a :class:`~voxtracer_torch.engine.params.DeviceRow`: the kernel's
+    row-reading entry then takes vector and frame number from the row on
+    the device, so that a captured CUDA graph renders whichever row is
+    there at replay.  Launches on the current stream and does
+    not synchronise.  Raises if an input is not what the kernel takes or
+    the launch is refused."""
+    _check_inputs(tables, noise, height, width)
+    if not isinstance(params, DeviceRow):
+        params = check_params(params, TRACE_PARAMS_LEN)
     if tables.device.type != "cuda":
         raise ValueError(f"CUDA kernel given tensors on {tables.device}")
     if not noise.is_contiguous():
@@ -577,10 +588,20 @@ def render_sample_cuda(
     }
     geometry = tables.geometry()
     n_slices = int(noise.shape[0])
+    if isinstance(params, DeviceRow):
+        if params.row.device != dev:
+            raise ValueError(
+                f"row on {params.row.device}, scene tables on {dev}")
+        # the vector and, behind it, the frame number
+        source = (None, params.pointer(ROW_TRACE))
+        frame = 0
+    else:
+        source = (params.ctypes.data, None)
+        frame = int(frame) % n_slices
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = launch(
-            params.ctypes.data,
+            *source,
             geometry.ctypes.data,
             tables.packed_idx.data_ptr(),
             tables.meta_idx.data_ptr(),
@@ -588,7 +609,7 @@ def render_sample_cuda(
             tables.palette.data_ptr(),
             noise.data_ptr(),
             n_slices,
-            int(frame) % n_slices,
+            frame,
             height,
             width,
             out["color"].data_ptr(),
@@ -633,7 +654,9 @@ def _spill_bytes() -> int:
 
     lines = _build.build_log().splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry function" in line and "trace_kernel" in line:
+        # the by-value entry's instance, trace_kernel<false>
+        if ("Compiling entry function" in line
+                and "trace_kernelILb0E" in line):
             for follow in lines[i + 1:i + 4]:
                 m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                               r"loads", follow)
@@ -644,9 +667,9 @@ def _spill_bytes() -> int:
 
 def render_sample(
     tables: SceneTables,
-    params: np.ndarray,
+    params,
     noise: torch.Tensor,
-    frame: int,
+    frame,
     height: int,
     width: int,
 ) -> Dict[str, torch.Tensor]:
