@@ -77,12 +77,41 @@ Phases (each prints one line; any failure raises and exits non-zero):
     their full sizes; every JSON line printed; a non-zero return, a
     config's error line or a kernel never launched fails the run.
 
-Then checks that no module of the JAX package (``voxtracer``), JAX or
-Triton was imported, prints the per-kernel JSON line (each kernel's
-launches, error, times, bound and share of it, launches per frame of
-each config that ran it, its launches on phase 12's sequences, and the
-time of one PyTorch call computing the same function, where there is
-one), then the device line last.
+16. the interactive layer: (a) ``WebViewer.render_once`` through a
+    scripted list of events (key-downs, look deltas, a slider, a denoise
+    radius, a reset, a resize, a scene swap) on chr_knight 640x360 r=2:
+    every raw u8 frame that reaches the encoder (through the render
+    loop's own frame step and host fetch), and its ray count, == a plain
+    ``Renderer.render()`` loop over the same cameras and parameters,
+    whose stages hold the trace, temporal and denoise kernels against
+    their plain versions on every frame's inputs (640x360 at r = 2 and
+    3, 320x180, both scenes; the bars of phases 3, 5 and 6); (b) ``serve()`` on 127.0.0.1:0 with the render loop
+    thread: a client reads ``/stream`` for 3 s while ``look`` events are
+    posted: client-observed fps, ``stage_stats()``, the MIME type, the
+    exact Mray/s (the trace kernel's ray counters), and the five
+    kernels' launches per frame of the loop, read around the run;
+    (c) ``voxtracer_torch.app.ibench.main(["--seconds", "3"])``: its four
+    rows (web chr_knight and menger 640x360, tui chr_knight 256x144,
+    wall chr_knight 1280x720).
+17. kernel hot-reload: ``ops/_build`` pointed at a copy of ``csrc/`` in
+    a temporary directory (the repo's sources are never edited); a
+    comment appended to one ``.cu`` and ``KernelWatcher.poll()``: a new
+    library path, the sequence path's graphs dropped, frames (a render
+    loop and a replayed sequence) == those of the library before; then a
+    broken source: ``poll()`` False, the last good library still loaded,
+    the next frames equal again; the seconds of each rebuild.
+18. the legacy Whitted mode: ``cli.main(["--legacy-whitted", ...])`` on
+    the card at 1280x720 (menger) with its time; ``render_scene`` on the
+    card against ``--device cpu`` at 160x90: max abs error (bar 1e-5,
+    the JAX comparison's) and values differing.
+
+Then (phase 15) checks that no module of the JAX package
+(``voxtracer``), JAX or Triton was imported, prints the per-kernel JSON
+line (each kernel's launches, error, times, bound and share of it,
+launches per frame of each config that ran it, its launches on phase
+12's sequences and per frame of phase 16's viewer loop, and the time of
+one PyTorch call computing the same function, where there is one), then
+the device line last.
 
 Bounds (``bound_ms``): the larger of the bytes the function must move
 (each input read once, each output written once) over 3.35 TB/s and
@@ -1227,6 +1256,362 @@ def phase_harness(smi):
     return launches
 
 
+def phase_interactive(smi):
+    """Phase 16: the web viewer's frames against a plain render() loop,
+    a served stream read by a client, and the ibench rows.  Returns the
+    five kernels' launches per frame of the viewer loop."""
+    from voxtracer_torch.app import camera_paths, ibench, web
+    from voxtracer_torch.engine.pipeline import Renderer
+    from voxtracer_torch.engine.scene import load_scene
+
+    w, h, radius = 640, 360, 2
+    scenes = {"chr_knight": load_scene("chr_knight"),
+              "menger": load_scene("menger")}
+
+    def renderer():
+        return Renderer(scene=scenes["chr_knight"], height=h, width=w,
+                        device="cuda", denoise_radius=radius, lean=True)
+
+    # (a) scripted events through render_once == a plain render() loop,
+    # whose stages hold each kernel against its plain version on the
+    # frame's own inputs
+    viewer = web.WebViewer(renderer(), scenes=sorted(scenes))
+    viewer.ctl.frame(camera_paths.static(scenes["chr_knight"])(0.0))
+    plain = renderer()
+    held = hold_stages(plain)
+    published = []
+    publish = viewer._publish
+
+    def grab(img, rays):
+        published.append((img.copy(), rays))
+        publish(img, rays)
+
+    viewer._publish = grab
+    script = [
+        [{"type": "grab", "grabbed": True}],
+        [{"type": "keydown", "key": "w"}], [],
+        [{"type": "keyup", "key": "w"}, {"type": "look", "dx": 30, "dy": -10}],
+        [{"type": "look", "dx": -45, "dy": 4}],
+        [{"type": "param", "name": "sun_strength", "value": 6.5}], [],
+        [{"type": "param", "name": "denoise_radius", "value": 3}],
+        [{"type": "look", "dx": 5, "dy": 0}],
+        [{"type": "reset"}], [],
+        [{"type": "size", "width": 320, "height": 180}], [],
+        [{"type": "keydown", "key": "d"}, {"type": "keydown", "key": "shift"}],
+        [{"type": "keyup", "key": "d"}, {"type": "keyup", "key": "shift"}],
+        [{"type": "scene", "name": "menger"}], [],
+        [{"type": "param", "name": "denoise_radius", "value": 2},
+         {"type": "look", "dx": 8, "dy": 0}],
+    ]
+    kinds = set()
+    for events in script:
+        for ev in events:
+            viewer.handle_event(ev)
+            kinds.add(ev["type"])
+            if ev["type"] == "scene":
+                # the viewers keep the camera on a swap, and chr_knight's
+                # pose lies inside menger's solid: every depth 0, so
+                # log|depth| is -inf and the denoised frame NaN in both
+                # versions.  Fly to menger's own pose instead.
+                viewer.ctl.frame(
+                    camera_paths.static(scenes[ev["name"]])(0.0))
+        viewer.render_once()
+        # the same frame from the plain loop: the viewer's camera and
+        # parameters, its resets, resizes and scene swaps
+        for ev in events:
+            if ev["type"] == "reset":
+                plain.reset_accumulation()
+            elif ev["type"] == "size":
+                plain.resize(ev["height"], ev["width"])
+            elif ev["type"] == "scene":
+                plain.set_scene(scenes[ev["name"]])
+        r = viewer.renderer
+        plain.render_params, plain.temporal_params = (r.render_params,
+                                                      r.temporal_params)
+        plain.denoise_params = r.denoise_params
+        plain.denoise_radius = r.denoise_radius
+        out = plain.render(viewer.ctl.camera)
+        img, rays = published[-1]
+        want = out["image"].cpu().numpy()
+        assert img.shape == want.shape and np.array_equal(img, want), (
+            len(published), img.shape, want.shape)
+        assert rays == int(out["rays"].sum()), (rays, out["rays"])
+    sizes = sorted({img.shape[:2] for img, _ in published})
+    assert all(held[k]["frames"] for k in held), held
+    say(16, f"render_once through {len(script)} scripted frames "
+            f"({', '.join(sorted(kinds))}; sizes {sizes}): every published "
+            f"u8 frame and "
+            f"its ray count == a plain Renderer.render() loop over the same "
+            f"cameras and parameters; that loop's kernels against their "
+            f"plain versions on its inputs: "
+            + ", ".join(f"{k} {v['frames']} frames, max err {v['err']:g}"
+                        for k, v in held.items()) + f" [{smi}]")
+
+    # (b) a real server and a client reading /stream
+    import http.client
+    import threading
+
+    kernels = frame_kernels()
+    viewer = web.WebViewer(renderer(), scenes=sorted(scenes))
+    viewer.ctl.frame(camera_paths.static(scenes["chr_knight"])(0.0))
+    server = web.serve(viewer, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    port = server.server_address[1]
+    rays_published = [0, 0]
+    publish = viewer._publish
+
+    def count(img, rays):
+        rays_published[0] += rays
+        rays_published[1] += 1
+        publish(img, rays)
+
+    viewer._publish = count
+    rendered = [0]
+    render = viewer.renderer.render
+
+    def counted_render(camera):
+        rendered[0] += 1
+        return render(camera)
+
+    viewer.renderer.render = counted_render
+    for k in kernels.values():
+        k.launches = 0
+    viewer.start()
+    seconds = 3.0
+    try:
+        viewer.handle_event({"type": "grab", "grabbed": True})
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+        conn.request("GET", "/stream")
+        resp = conn.getresponse()
+        stream_type = resp.getheader("Content-Type")
+        mimes, frames = set(), []
+
+        def part():
+            assert resp.readline() == b"--vtframe\r\n"
+            mime = resp.readline().split(b": ")[1].strip().decode()
+            n = int(resp.readline().split(b": ")[1])
+            assert resp.readline() == b"\r\n"
+            data = resp.read(n)
+            assert resp.read(2) == b"\r\n" and len(data) == n
+            return mime
+
+        for _ in range(5):  # warm: the first frames build nothing now
+            part()
+        viewer.reset_stage_stats()
+        rays_published[:] = [0, 0]
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            viewer.handle_event({"type": "look", "dx": 3.0, "dy": 0.0})
+            mimes.add(part())
+            frames.append(time.perf_counter())
+        elapsed = time.perf_counter() - t0
+        state = viewer.state_json()
+        stats = viewer.stage_stats()
+        conn.close()
+    finally:
+        viewer.stop()
+        server.shutdown()
+        server.server_close()
+    # the loop thread has ended: launches and frames are final
+    launches = {name: k.launches for name, k in kernels.items()}
+    loop_frames = rendered[0]
+    assert stats["errors"] == 0 and len(frames) > 10, (stats, len(frames))
+    assert stream_type == "multipart/x-mixed-replace; boundary=vtframe"
+    per_frame = {name: n / loop_frames for name, n in launches.items()}
+    assert launches["trace"] == launches["denoise"] == loop_frames, launches
+    assert launches["resample"] == launches["stall"] == 0, launches
+    assert 0 < launches["temporal"] < loop_frames, launches
+    mrays_run = rays_published[0] / elapsed / 1e6
+    say(16, f"serve() chr_knight {w}x{h} r={radius}: client read "
+            f"{len(frames)} frames of /stream in {elapsed:.3f} s = "
+            f"{len(frames) / elapsed:.1f} fps while posting look events; "
+            f"{stream_type}, frames {sorted(mimes)}; published "
+            f"{rays_published[1]} frames, exact {mrays_run:.2f} Mray/s over "
+            f"the run (state_json, last 0.25 s window: fps {state['fps']}, "
+            f"{state['mrays_per_s']} Mray/s; H*W*fps would say "
+            f"{w * h * state['fps'] / 1e6:.2f}); stage_stats {stats}; "
+            f"launches {launches} over the loop's {loop_frames} frames "
+            f"(per frame {per_frame}) [{smi}]")
+
+    # (c) the interactive benchmark's rows
+    rc, rows = run_captured(16, ibench.main, ["--seconds", "3"])
+    assert rc == 0 and [r["mode"] for r in rows] == ["web", "web", "tui",
+                                                      "wall"], rows
+    assert all(r["device"] == smi and r["fps"] > 0 for r in rows), rows
+    return per_frame, {k: v["err"] for k, v in held.items()}
+
+
+def hold_stages(r):
+    """Make renderer ``r``'s stages launch each frame kernel and hold it
+    against its plain version on the same inputs, with the bars of
+    phases 3, 5 and 6 and ``drive_path``.  The stages still return the
+    kernel's result.  Returns the frames held and the largest error of
+    each kernel, filled in as ``r`` renders."""
+    from voxtracer_torch.ops import denoise, temporal, trace
+
+    held = {k: {"frames": 0, "err": 0.0}
+            for k in ("trace", "temporal", "denoise")}
+
+    def note(name, err):
+        held[name]["frames"] += 1
+        held[name]["err"] = max(held[name]["err"], err)
+
+    def trace_stage(tables, params, noise, frame, h, w):
+        args = (tables, params, noise, frame, h, w)
+        g = trace.render_sample_cuda(*args)
+        p = trace.render_sample_plain(*args)
+        cerr = (g["color"] - p["color"]).abs().amax(0)
+        assert torch.equal(g["node"], p["node"])
+        assert torch.equal(g["depth"], p["depth"])
+        assert int((cerr > 1e-3).sum()) <= 0.005 * w * h
+        assert torch.equal(g["rays"][:3], p["rays"][:3])
+        assert torch.equal(g["steps"][:3], p["steps"][:3])
+        note("trace", float(cerr.max()))
+        return g
+
+    def temporal_stage(*args):
+        kc, kb = temporal.temporal_blend_reproject_cuda(*args)
+        pc, pb = temporal.temporal_blend_reproject_plain(*args)
+        err = float((kc - pc).abs().max())
+        assert torch.equal(kb, pb) and err <= 1e-6, err
+        note("temporal", err)
+        return kc, kb
+
+    def denoise_stage(*args):
+        if args[-1] == 0:  # the modulate alone: no kernel
+            return denoise.denoise(*args)
+        k, p, n_far, _ = compare_denoise(args)
+        assert n_far == 0 and bool(torch.isfinite(p).all()), n_far
+        note("denoise", float((k - p).abs().max()))
+        return k
+
+    r.trace, r.temporal, r.denoise = trace_stage, temporal_stage, denoise_stage
+    return held
+
+
+def phase_reload(smi):
+    """Phase 17: rebuild from a temporary copy of csrc/, then a broken
+    source that keeps the last good library."""
+    import shutil
+
+    from voxtracer_torch.app import camera_paths
+    from voxtracer_torch.engine.pipeline import Renderer
+    from voxtracer_torch.engine.reload import KernelWatcher, renderer_hook
+    from voxtracer_torch.engine.scene import load_scene
+    from voxtracer_torch.ops import _build
+
+    scene = load_scene("menger")
+    cam = camera_paths.static(scene)(0.0)
+    cams = [cam, cam.pitched(1.0), cam.pitched(2.0)]
+
+    def frames(r):
+        """A fresh loop of three frames and a replayed three-frame
+        sequence from the same start (state and frame number), as u8
+        numpy."""
+        r.reset_accumulation()
+        r.frame_number = 0
+        loop = [r.render(c)["image"].cpu().numpy() for c in cams]
+        r.reset_accumulation()
+        r.frame_number = 0
+        seq = r.render_sequence(cams).cpu().numpy()
+        return np.stack(loop), seq
+
+    r = Renderer(scene=scene, height=180, width=320, device="cuda",
+                 denoise_radius=2, lean=True)
+    base_loop, base_seq = frames(r)
+    assert np.array_equal(base_loop, base_seq)
+    first = _build.load()._name
+    saved = _build.CSRC_DIR, _build.BUILD_DIR
+    tmp = tempfile.mkdtemp(prefix="voxreload_")
+    try:
+        _build.CSRC_DIR = os.path.join(tmp, "csrc")
+        _build.BUILD_DIR = os.path.join(tmp, "build")
+        shutil.copytree(saved[0], _build.CSRC_DIR)
+        watcher = KernelWatcher(on_reload=renderer_hook(r), debounce=0.0)
+        assert not watcher.poll()
+
+        def touch(name, text):
+            path = os.path.join(_build.CSRC_DIR, name)
+            with open(path, "a") as f:
+                f.write(text)
+            later = time.time() + 5
+            os.utime(path, (later, later))
+
+        touch("reproject.cu", "\n// hot-reload check\n")
+        assert r._runner is not None
+        t0 = time.perf_counter()
+        assert watcher.poll()
+        rebuild_s = time.perf_counter() - t0
+        second = _build.load()._name
+        assert second != first and r._runner is None, (first, second)
+        loop, seq = frames(r)
+        assert np.array_equal(loop, base_loop) and np.array_equal(seq, base_seq)
+
+        touch("trace.cu", "\nthis is not C++;\n")
+        t0 = time.perf_counter()
+        assert not watcher.poll()
+        failed_s = time.perf_counter() - t0
+        assert _build.load()._name == second
+        loop, seq = frames(r)
+        assert np.array_equal(loop, base_loop) and np.array_equal(seq, base_seq)
+    finally:
+        _build.CSRC_DIR, _build.BUILD_DIR = saved
+        _build.load.cache_clear()
+        shutil.rmtree(tmp, ignore_errors=True)
+    assert _build.load()._name == first
+    say(17, f"hot-reload from a copy of csrc/: comment appended to "
+            f"reproject.cu -> rebuilt in {rebuild_s:.2f} s, new library "
+            f"{os.path.basename(second)}, sequence graphs dropped, loop and "
+            f"replayed frames == those of {os.path.basename(first)}; broken "
+            f"trace.cu -> poll() False in {failed_s:.2f} s, the last good "
+            f"library still loaded, next frames equal again [{smi}]")
+
+
+def phase_whitted(smi):
+    """Phase 18: the legacy Whitted mode through the CLI on the card at
+    1280x720, then the card against the CPU at 160x90."""
+    from voxtracer_torch.app import camera_paths, cli
+    from voxtracer_torch.engine.scene import load_scene, load_voxels
+    from voxtracer_torch.ops import whitted
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "whitted.png")
+        t0 = time.perf_counter()
+        rc, _ = run_captured(18, cli.main, [
+            "--legacy-whitted", "--scene", "menger", "--size", "1280x720",
+            "-o", out])
+        seconds = time.perf_counter() - t0
+        assert rc == 0 and os.path.getsize(out) > 10_000
+    voxels = load_voxels("menger")
+    cam = camera_paths.static(load_scene("menger"))(0.0)
+    t0 = time.perf_counter()
+    card = whitted.render_scene(voxels, cam, 160, 90, device="cuda")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    host = whitted.render_scene(voxels, cam, 160, 90, device="cpu")
+    err = (card.cpu() - host).abs()
+    n_diff = int((err > 0).sum())
+    # the bar of the port's comparison with the JAX package: 1e-5
+    hit = float((host != whitted_sky(cam, 160, 90)).any(-1).float().mean())
+    say(18, f"legacy whitted menger 1280x720 through cli.main on the card: "
+            f"{seconds:.2f} s incl. the octree build and the PNG; 160x90 "
+            f"card {card_s:.3f} s vs cpu: max abs err {float(err.max()):g} "
+            f"(bar 1e-5), values differing {n_diff}, hit fraction "
+            f"{hit:.3f} [{smi}]")
+    assert float(err.max()) <= 1e-5 and hit > 0.05
+
+
+def whitted_sky(cam, w, h):
+    """The Whitted image of an empty scene (every pixel abs(dir))."""
+    from voxtracer_torch.ops import whitted
+    from voxtracer_torch.scene import VoxelList
+
+    empty = VoxelList(pos=np.zeros((0, 3), np.int16),
+                      mrgb=np.zeros((0, 4), np.uint8))
+    return whitted.render_scene(empty, cam, w, h, device="cpu")
+
+
 def check_no_jax_package():
     """The run imported nothing of the JAX package, JAX or Triton."""
     bad = sorted(m for m in sys.modules
@@ -1268,6 +1653,9 @@ def main():
     }
     phase_cli(smi)
     launches["resample"] = phase_harness(smi)["resample"]
+    viewer_per_frame, viewer_err = phase_interactive(smi)
+    phase_reload(smi)
+    phase_whitted(smi)
     check_no_jax_package()
     # The trace's times, bound and launches come from the main path
     # (config 2, phase 4), the temporal and denoise kernels' from config
@@ -1280,7 +1668,8 @@ def main():
             main_trace["max_abs_err"], trace_err,
             entries["trace"]["max_abs_err"])}
     for name, err in (("temporal", temporal_err), ("denoise", denoise_err),
-                      *((k, e["max_abs_err"]) for k, e in config3.items())):
+                      *((k, e["max_abs_err"]) for k, e in config3.items()),
+                      *viewer_err.items()):
         entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"], err)
     for name in entries:
         entries[name]["launches_per_frame"] = {
@@ -1292,6 +1681,8 @@ def main():
             config: counts[name] for config, (counts, _) in sequence.items()}
         total = sum(entries[name]["sequence_launches"].values())
         assert (total > 0) == (name in SEQUENCE_KERNELS), (name, total)
+        # phase 16's web viewer loop, chr_knight 640x360 r=2
+        entries[name]["viewer_launches_per_frame"] = viewer_per_frame[name]
     for name in ("trace", "temporal", "denoise", "stall"):
         entries[name]["library_ms"] = None  # no one PyTorch call computes it
     sources = {

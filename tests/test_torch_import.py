@@ -42,16 +42,47 @@ def test_port_imports_neither_jax_nor_triton():
         capture_output=True, text=True, timeout=120, check=True,
     )
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    for name in ("trace", "temporal", "denoise", "reproject", "_build"):
+    for name in ("trace", "temporal", "denoise", "reproject", "_build",
+                 "whitted"):
         assert f"voxtracer_torch.ops.{name}" in res["modules"]
     for name in ("cli", "bench", "phasestats", "stallbench", "tracebench",
-                 "denoisebench"):
+                 "denoisebench", "input", "viewer", "web", "ibench",
+                 "profile"):
         assert f"voxtracer_torch.app.{name}" in res["modules"]
     for name in ("io.vox", "io.image", "scene.grid", "scene.procedural",
                  "native", "oracle.renderer", "ops.noise", "utils.log",
-                 "utils.timing", "io.f32zip", "engine.snapshot"):
+                 "utils.timing", "io.f32zip", "engine.snapshot",
+                 "engine.reload", "utils.fetch", "scene.octree"):
         assert f"voxtracer_torch.{name}" in res["modules"]
     assert res["bad"] == []
+
+
+class _Parsed(Exception):
+    pass
+
+
+@pytest.mark.parametrize("module", ["cli", "viewer", "web", "ibench",
+                                    "profile", "bench", "phasestats",
+                                    "denoisebench"])
+def test_entry_points_default_to_the_card(module, monkeypatch):
+    """Every entry point of the port runs on the card unless the caller
+    asks for the CPU (``--device cpu``): ``main([])`` parses
+    ``device == "cuda"`` (stopped right after its parser)."""
+    import argparse
+    import importlib
+
+    parse = argparse.ArgumentParser.parse_args
+    seen = []
+
+    def parse_and_stop(self, args=None, namespace=None):
+        seen.append(parse(self, args, namespace))
+        raise _Parsed
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", parse_and_stop)
+    main = importlib.import_module(f"voxtracer_torch.app.{module}").main
+    with pytest.raises(_Parsed):
+        main([])
+    assert seen[0].device == "cuda"
 
 
 @pytest.mark.parametrize(

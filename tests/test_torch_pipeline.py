@@ -317,12 +317,36 @@ def test_cli_refuses_a_negative_denoise_radius():
                   "-1"])
 
 
-@pytest.mark.parametrize(
-    "flags", [["--legacy-whitted"], ["--watch-kernels"]],
-)
-def test_cli_refuses_what_is_not_ported(flags):
-    with pytest.raises(SystemExit, match="not yet ported"):
-        cli.main(["--device", "cpu", "--scene", "8x8x8", *flags])
+PORTED_MODES = [["--legacy-whitted"], ["--watch-kernels"]]
+
+
+@pytest.mark.parametrize("flags", PORTED_MODES)
+def test_cli_runs_the_ported_modes(flags, tmp_path):
+    """``--legacy-whitted`` and ``--watch-kernels`` run on the CPU and
+    write their PNG at the requested size."""
+    path = os.path.join(tmp_path, "frame.png")
+    rc = cli.main(["--device", "cpu", "--scene", "8x8x8", "--size", "24x16",
+                   "--frames", "2", *flags, "-o", path])
+    assert rc == 0
+    with open(path, "rb") as f:
+        data = f.read()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    assert struct.unpack(">II", data[16:24]) == (24, 16)
+
+
+@pytest.mark.parametrize("flags", PORTED_MODES)
+def test_cli_refuses_a_light_without_its_brightness(flags):
+    with pytest.raises(SystemExit, match="--light"):
+        cli.main(["--device", "cpu", "--scene", "8x8x8", *flags,
+                  "--light", "1,2,3"])
+
+
+@pytest.mark.parametrize("flags", PORTED_MODES)
+def test_cli_refuses_what_is_not_ported(flags, tmp_path):
+    """Kept under its earlier name, from when both modes were refused as
+    not yet ported: both now run (the two tests above)."""
+    test_cli_runs_the_ported_modes(flags, tmp_path)
+    test_cli_refuses_a_light_without_its_brightness(flags)
 
 
 @pytest.mark.slow

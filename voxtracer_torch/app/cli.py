@@ -7,11 +7,14 @@ offline export mode (``--batch N``: N frames per host call through
 ``Renderer.render_sequence``, on the card one CUDA-graph replay a
 frame), every frame as a PNG (``--video-dir``), resumable snapshots
 (``--save-snapshot``, ``--resume``), per-stage timing (``--stats``) and
-a ``torch.profiler`` trace (``--profile DIR``).  ``--trace-impl`` and
-``--batch-resample`` have no counterpart: the device picks the trace
-implementation, and the temporal kernel gathers history at any offset.
-The legacy Whitted mode and kernel hot-reload are not ported yet and
-exit with a message.
+a ``torch.profiler`` trace (``--profile DIR``), kernel hot-reload
+during the run (``--watch-kernels``: ``voxtracer_torch/csrc/*.cu`` and
+the kernel wrappers, polled once a frame and once a batch), and one
+still from the legacy Whitted raytracer (``--legacy-whitted``, with
+``--light``; on ``--device`` like every mode: the reference pins it to
+the CPU).  ``--trace-impl`` and ``--batch-resample`` have no
+counterpart: the device picks the trace implementation, and the
+temporal kernel gathers history at any offset.
 
 Examples:
   python -m voxtracer_torch.app.cli --device cuda --scene menger \\
@@ -23,6 +26,8 @@ Examples:
       --size 64x64 --frames 4 --save-snapshot s.npz -o small.png
   python -m voxtracer_torch.app.cli --device cpu --scene 8x8x8 \\
       --size 64x64 --frames 4 --resume s.npz --stats -o small.png
+  python -m voxtracer_torch.app.cli --legacy-whitted --scene menger \\
+      --size 1280x720 -o whitted.png
 """
 
 from __future__ import annotations
@@ -41,15 +46,14 @@ from ..engine import snapshot as snapshot_mod
 from ..engine.camera import Camera
 from ..engine.params import DenoiseParams, RenderParams, TemporalParams
 from ..engine.pipeline import Renderer
-from ..engine.scene import available_scenes, load_scene
+from ..engine.reload import KernelWatcher, renderer_hook
+from ..engine.scene import available_scenes, load_scene, load_voxels
 from ..io.image import write_png
 from ..ops.noise import blue_noise_buffer, white_noise_buffer
 from ..utils import FpsCounter, StageTimer, setup_logging
 from . import camera_paths
 
 log = logging.getLogger("voxtracer_torch.app")
-
-NOT_PORTED = "not yet ported to the PyTorch port"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -130,9 +134,15 @@ def build_parser() -> argparse.ArgumentParser:
                       help="capture a torch.profiler trace of the render "
                            "loop into DIR (trace.json, chrome format)")
     io_g.add_argument("--legacy-whitted", action="store_true",
-                      help="(not ported yet)")
+                      help="render one still with the legacy sorted-octant "
+                           "Whitted raytracer (reference shaders/basic.frag) "
+                           "instead of the path tracer")
+    io_g.add_argument("--light", default="0.4,-0.4,0.02,0.05",
+                      help="point light x,y,z,brightness for --legacy-whitted "
+                           "(reference src/context.rs:944-947 defaults)")
     io_g.add_argument("--watch-kernels", action="store_true",
-                      help="(not ported yet)")
+                      help="rebuild csrc/*.cu and reload the kernel wrappers "
+                           "when their sources change")
     return p
 
 
@@ -156,7 +166,7 @@ def make_params(args) -> RenderParams:
     return RenderParams(**kwargs)
 
 
-def _refuse_unported(args):
+def _check_args(args):
     if args.denoise_radius < 0:
         raise SystemExit(f"--denoise-radius must be >= 0, got "
                          f"{args.denoise_radius}")
@@ -164,24 +174,23 @@ def _refuse_unported(args):
         raise SystemExit(f"--frames must be >= 1, got {args.frames}")
     if args.batch < 1:
         raise SystemExit(f"--batch must be >= 1, got {args.batch}")
-    if args.legacy_whitted:
-        raise SystemExit(f"--legacy-whitted is {NOT_PORTED} (ROADMAP Queue 1 #6)")
-    if args.watch_kernels:
-        raise SystemExit(f"--watch-kernels is {NOT_PORTED} (ROADMAP Queue 1 #4)")
+    if len(_parse_vec(args.light)) != 4:
+        raise SystemExit(f"--light takes x,y,z,brightness, got {args.light}")
 
 
 @contextlib.contextmanager
 def _profiled(directory, device):
-    """A ``torch.profiler`` trace of the block, written to
+    """A profiler trace of the block, written to
     ``directory/trace.json``; nothing where ``directory`` is None."""
     if directory is None:
         yield
         return
     os.makedirs(directory, exist_ok=True)
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if device.type == "cuda":
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=activities) as prof:
+    # torch.autograd.profiler, the Kineto profiler under torch.profiler,
+    # which imports torch._inductor (and Triton) each time it starts
+    with torch.autograd.profiler.profile(
+            use_device="cuda" if device.type == "cuda" else None,
+            use_kineto=True) as prof:
         yield
         if device.type == "cuda":
             torch.cuda.synchronize(device)
@@ -195,7 +204,7 @@ def main(argv=None) -> int:
     if args.list_scenes:
         print("\n".join(["default"] + available_scenes()))
         return 0
-    _refuse_unported(args)
+    _check_args(args)
 
     width, height = (int(v) for v in args.size.lower().split("x"))
     try:
@@ -211,6 +220,10 @@ def main(argv=None) -> int:
             fov=np.radians(args.fov),
         )
     path = camera_paths.PATHS[args.path](scene)
+
+    if args.legacy_whitted:
+        camera = fixed_cam if fixed_cam is not None else path(0.0)
+        return _legacy_whitted(args, camera, width, height)
 
     renderer = Renderer(
         scene=scene,
@@ -235,6 +248,8 @@ def main(argv=None) -> int:
         lean=True,
     )
 
+    watcher = (KernelWatcher(on_reload=renderer_hook(renderer))
+               if args.watch_kernels else None)
     start_frame = 0
     if args.resume:
         fixed_cam = snapshot_mod.load(args.resume, renderer)
@@ -268,6 +283,8 @@ def main(argv=None) -> int:
             # The export mode: one host call per batch.  The remainder
             # (< batch frames) goes through the per-frame loop below.
             while args.frames - batched >= args.batch:
+                if watcher is not None:
+                    watcher.poll()
                 cams = [camera_at(batched + j) for j in range(args.batch)]
                 frames_u8 = timer.measure(
                     "batch", renderer.render_sequence, cams,
@@ -282,6 +299,8 @@ def main(argv=None) -> int:
                 image = frames_u8[-1]
                 batched += args.batch
         for i in range(batched, args.frames):
+            if watcher is not None:
+                watcher.poll()
             camera = camera_at(i)
             out = timer.measure(
                 "frame", renderer.render, camera,
@@ -308,6 +327,24 @@ def main(argv=None) -> int:
     if args.stats:
         for name, avg in timer.report().items():
             print(f"  stage {name}: {avg * 1e3:.2f} ms avg")
+    return 0
+
+
+def _legacy_whitted(args, camera, width, height) -> int:
+    """One still from the legacy Whitted raytracer, written as a PNG."""
+    from ..ops.whitted import render_scene
+
+    *light_pos, light_brightness = _parse_vec(args.light)
+    t0 = time.perf_counter()
+    img = render_scene(
+        load_voxels(args.scene), camera, width, height,
+        light_pos=tuple(light_pos), light_brightness=light_brightness,
+        device=args.device,
+    ).cpu().numpy()  # waits for the device
+    seconds = time.perf_counter() - t0
+    write_png(args.output, np.clip(img * 255.0, 0, 255).astype(np.uint8))
+    print(f"legacy whitted still at {width}x{height} in {seconds:.2f}s "
+          f"(device={torch.device(args.device).type}) -> {args.output}")
     return 0
 
 

@@ -16,6 +16,10 @@ name.  Then the same number of further frames unprofiled, timed with
 CUDA events, and the profiled device time over that frame time: an
 estimate of the unprofiled busy share, as the two come from different
 frames.
+
+:func:`profile_frames` is the counterpart of the JAX package's: frames
+of a list of cameras under the same profiled range, returning the device
+time per activity name (``app/ibench.py``'s ``wall`` row reads it).
 """
 
 from __future__ import annotations
@@ -23,8 +27,10 @@ from __future__ import annotations
 import argparse
 import collections
 import itertools
+import os
 import sys
 import time
+from typing import Callable, List, Tuple
 
 import torch
 from torch.autograd import DeviceType
@@ -64,6 +70,61 @@ def device_activities(events):
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def profile_range(advance: Callable[[], None], device, logdir=None):
+    """``advance()`` inside one profiled range that ends with a device
+    synchronise; with ``logdir``, the trace goes to
+    ``logdir/trace.json``.  Returns the range's wall microseconds, the
+    device activities inside it, and the union of their intervals in
+    microseconds (the device's busy time)."""
+    # torch.autograd.profiler, the Kineto profiler under torch.profiler:
+    # torch.profiler imports torch._inductor (and with it Triton, where
+    # it is installed) each time it starts
+    with torch.autograd.profiler.profile(
+            use_device="cuda" if device.type == "cuda" else None,
+            use_kineto=True) as prof:
+        with torch.autograd.profiler.record_function(RANGE):
+            advance()
+            _sync(device)
+    if logdir is not None:
+        os.makedirs(logdir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    events = prof.function_events
+    span = next(e for e in events if e.name == RANGE
+                and e.device_type == DeviceType.CPU).time_range
+    dev = device_activities(events)
+    busy_us = union_us(((e.time_range.start, e.time_range.end) for e in dev),
+                       span.start, span.end)
+    return span.elapsed_us(), dev, busy_us
+
+
+def activity_rows(dev) -> List[Tuple[str, float, int]]:
+    """``(name, device ns, count)`` per activity name, by descending
+    device time."""
+    per_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in dev:
+        per_name[e.name][0] += e.time_range.elapsed_us() * 1e3
+        per_name[e.name][1] += 1
+    return sorted(((name, ns, count) for name, (ns, count) in
+                   per_name.items()), key=lambda row: -row[1])
+
+
+def profile_frames(renderer, cameras, logdir=None) -> List[Tuple[str, float]]:
+    """Render ``cameras`` under one profiled range (after one frame at
+    the first camera and one at the second, outside it, that build the
+    kernels); returns ``[(activity name, device ns)]`` by descending
+    device time.  With ``logdir`` the trace is kept there."""
+    renderer.render(cameras[0])
+    renderer.render(cameras[min(1, len(cameras) - 1)])
+    _sync(renderer.device)
+
+    def advance():
+        for camera in cameras:
+            renderer.render(camera)
+
+    _, dev, _ = profile_range(advance, renderer.device, logdir)
+    return [(name, ns) for name, ns, _ in activity_rows(dev)]
 
 
 def main(argv=None) -> int:
@@ -107,20 +168,8 @@ def main(argv=None) -> int:
     advance(-(-args.warmup // args.batch) * args.batch)
     _sync(r.device)
 
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if r.device.type == "cuda":
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=activities) as prof:
-        with torch.profiler.record_function(RANGE):
-            advance(n)
-            _sync(r.device)
-    events = prof.events()
-    span = next(e for e in events if e.name == RANGE
-                and e.device_type == DeviceType.CPU).time_range
-    dev = device_activities(events)
-    busy_us = union_us(((e.time_range.start, e.time_range.end) for e in dev),
-                       span.start, span.end)
-    wall_ms = span.elapsed_us() / 1e3 / n
+    wall_us, dev, busy_us = profile_range(lambda: advance(n), r.device)
+    wall_ms = wall_us / 1e3 / n
     busy_ms = busy_us / 1e3 / n
     label = (f"{args.scene} {width}x{height} {args.path} "
              f"r={args.denoise_radius}, {n} frames"
@@ -128,12 +177,8 @@ def main(argv=None) -> int:
     print(f"{label} profiled: wall {wall_ms:.4f} ms/frame, device "
           f"{busy_ms:.4f} ms/frame, busy share {busy_ms / wall_ms:.4f}, "
           f"{len(dev) / n:.1f} device activities/frame")
-    per_name = collections.defaultdict(lambda: [0.0, 0])
-    for e in dev:
-        per_name[e.name][0] += e.time_range.elapsed_us()
-        per_name[e.name][1] += 1
-    for name, (us, count) in sorted(per_name.items(), key=lambda kv: -kv[1][0]):
-        print(f"  {us / 1e3 / n:9.4f} ms/frame {count / n:5.1f}/frame  "
+    for name, ns, count in activity_rows(dev):
+        print(f"  {ns / 1e6 / n:9.4f} ms/frame {count / n:5.1f}/frame  "
               f"{name[:100]}")
 
     if r.device.type == "cuda":

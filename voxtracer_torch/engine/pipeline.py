@@ -223,15 +223,17 @@ def render_frame(
     return new_state, outputs
 
 
-# The frame kernels' wrappers: a replayed graph adds what they counted
-# while it was captured.  A stage swapped for another callable is
-# accounted as far as it launches through these.
-COUNTED_KERNELS = (
-    trace_op.render_sample_cuda,
-    temporal_op.temporal_blend_reproject_cuda,
-    denoise_op.denoise_cuda,
-    reproject_op.resample_cuda,
-)
+def counted_kernels():
+    """The frame kernels' wrappers: a replayed graph adds what they
+    counted while it was captured.  A stage swapped for another callable
+    is accounted as far as it launches through these.  Looked up at each
+    call: a hot-reloaded module (``engine/reload.py``) has new ones."""
+    return (
+        trace_op.render_sample_cuda,
+        temporal_op.temporal_blend_reproject_cuda,
+        denoise_op.denoise_cuda,
+        reproject_op.resample_cuda,
+    )
 
 
 class SequenceRunner:
@@ -334,15 +336,15 @@ class SequenceRunner:
         self.slot.zero_()
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
-        before = [k.launches for k in COUNTED_KERNELS]
+        kernels = counted_kernels()
+        before = [k.launches for k in kernels]
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph, pool=self.pool):
                 self.frame(reproject)
-            per_replay = [k.launches - n
-                          for k, n in zip(COUNTED_KERNELS, before)]
+            per_replay = [k.launches - n for k, n in zip(kernels, before)]
         finally:  # a capture that raised launched nothing either
-            for kernel, n in zip(COUNTED_KERNELS, before):
+            for kernel, n in zip(kernels, before):
                 kernel.launches = n
         self.graphs[reproject] = (graph, per_replay)
 
@@ -356,7 +358,7 @@ class SequenceRunner:
             captured, per_replay = self.graphs[reproject]
             for _ in range(start, end):
                 captured.replay()
-            for kernel, n in zip(COUNTED_KERNELS, per_replay):
+            for kernel, n in zip(counted_kernels(), per_replay):
                 kernel.launches += n * (end - start)
 
 

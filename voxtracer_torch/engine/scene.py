@@ -43,8 +43,15 @@ def available_scenes():
 def load_scene(name: str) -> GridScene:
     """A scene by asset name (``assets/vox/<name>.vox``), by .vox path,
     or ``"default"`` for the procedural scene."""
+    return GridScene.from_voxels(load_voxels(name))
+
+
+def load_voxels(name: str) -> VoxelList:
+    """The voxel list of a scene named as for :func:`load_scene` (the
+    legacy Whitted renderer walks the pointer octree built from it, not
+    the dense grid)."""
     if name == "default":
-        return GridScene.from_voxels(default_scene())
+        return default_scene()
     path = name if os.path.exists(name) else os.path.join(
         ASSET_DIR, name + ".vox"
     )
@@ -53,7 +60,7 @@ def load_scene(name: str) -> GridScene:
             f"unknown scene {name!r}; available: "
             f"{', '.join(['default'] + available_scenes())}"
         )
-    return GridScene.from_voxels(voxels_from_vox(voxio.load(path)))
+    return voxels_from_vox(voxio.load(path))
 
 
 class SceneTables(nn.Module):

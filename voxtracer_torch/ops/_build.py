@@ -16,8 +16,10 @@ import glob
 import hashlib
 import os
 import shutil
+import signal
 import subprocess
 import tempfile
+import time
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -61,34 +63,51 @@ def library_path() -> str:
 def build() -> str:
     """Compile the sources if their library is not built yet; returns
     the library path.  ``build_log`` (next to it) keeps nvcc's output,
-    with ptxas's register and spill report for every kernel."""
+    with ptxas's register and spill report for every kernel.  The first
+    source that fails stops the build at once (a hot-reload waits for
+    it)."""
     out = library_path()
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
+    srcs = _sources()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [os.path.join(tmp, os.path.basename(src) + ".o")
-                for src in _sources()]
-        procs = [
-            subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-            )
-            for src, obj in zip(_sources(), objs)
-        ]
-        log = []
-        for src, proc in zip(_sources(), procs):
-            stdout, stderr = proc.communicate()
-            log.append(stdout + stderr)
-            if proc.returncode != 0:
-                for other in procs:
-                    other.kill()
-                    other.wait()
-                raise RuntimeError(
-                    f"nvcc failed on {os.path.basename(src)} "
-                    f"({proc.returncode}):\n{stderr}"
-                )
+                for src in srcs]
+        # each compiler's output goes to a file: a pipe nobody reads
+        # while another source compiles could fill and stall it
+        logs = [obj + ".log" for obj in objs]
+        procs = []
+        for src, obj, log_path in zip(srcs, objs, logs):
+            with open(log_path, "w") as f:
+                # a session of its own: stopping it stops nvcc's cicc
+                # and ptxas too
+                procs.append(subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                    stdout=f, stderr=subprocess.STDOUT,
+                    start_new_session=True))
+        pending = set(range(len(procs)))
+        try:
+            while pending:
+                done = [i for i in pending if procs[i].poll() is not None]
+                for i in done:
+                    pending.discard(i)
+                    if procs[i].returncode != 0:
+                        raise RuntimeError(
+                            f"nvcc failed on {os.path.basename(srcs[i])} "
+                            f"({procs[i].returncode}):\n{_read(logs[i])}")
+                if not done:
+                    time.sleep(0.02)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    try:
+                        os.killpg(proc.pid, signal.SIGKILL)
+                    except ProcessLookupError:  # it ended meanwhile
+                        pass
+                proc.wait()
+        log = [_read(log_path) for log_path in logs]
         lib = os.path.join(tmp, "lib.so")
         link = subprocess.run(
             [nvcc, "-shared", "-o", lib, *objs], capture_output=True,
@@ -102,6 +121,11 @@ def build() -> str:
             f.write("".join(log))
         os.replace(lib, out)
     return out
+
+
+def _read(path: str) -> str:
+    with open(path) as f:
+        return f.read()
 
 
 def build_log() -> str:

@@ -1,0 +1,86 @@
+"""One frame of lookahead between the device and the host.
+
+The viewers show frame N while the card renders frame N + 1: a blocking
+fetch of each frame right after its ``render()`` would leave the card
+idle while the host waits, formats and encodes.  The JAX package starts
+the copy with ``copy_to_host_async`` and reads it a frame later
+(``voxtracer/app/viewer.py``, ``voxtracer/app/web.py``); PyTorch has no
+such call, so :class:`LookaheadFetch` does it by hand:
+
+* two pinned host buffer sets (image and ray counters), used in turn: a
+  copy into pageable memory with ``non_blocking=True`` is synchronous;
+* ``copy_(..., non_blocking=True)`` of the frame's u8 image (made
+  contiguous on the card first: ``out["image"]`` is a view of planar
+  data) and of its ray counters, then a CUDA event recorded behind the
+  copies;
+* the previous frame's event is waited for before the host reads its
+  buffers, which it may then do until the next :meth:`push`: a buffer
+  read before its copy completed would hold a torn frame.
+
+Nothing else in a loop around it may wait for the card (``.cpu()``,
+``.item()``, a print of a device tensor): any of these serialises the
+pipeline.  On the CPU the frame's tensors are the host's already and
+come back as they are, still one frame behind.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+class LookaheadFetch:
+    """``push(out)`` starts the host copy of a frame's ``image`` and
+    ``rays`` and returns the previous frame's ``(image (H, W, 3) u8,
+    rays)``, or None for the first frame after construction or
+    :meth:`drop`."""
+
+    def __init__(self):
+        self._slots: list = [None, None]  # (image, rays, event) in turn
+        self._turn = 0
+        self._pending: Optional[Tuple] = None
+
+    def push(self, out: Dict[str, torch.Tensor]
+             ) -> Optional[Tuple[np.ndarray, int]]:
+        image, rays = out["image"], out["rays"]
+        if image.device.type == "cuda":
+            current = self._copy(image, rays)
+        else:
+            current = (image, rays, None)
+        previous, self._pending = self._pending, current
+        return None if previous is None else self._read(previous)
+
+    def flush(self) -> Optional[Tuple[np.ndarray, int]]:
+        """The frame in flight, waiting for its copy; None if there is
+        none."""
+        pending, self._pending = self._pending, None
+        return None if pending is None else self._read(pending)
+
+    def drop(self):
+        """Forget the frame in flight (its size is gone after a resize)."""
+        self._pending = None
+
+    def _copy(self, image: torch.Tensor, rays: torch.Tensor):
+        slot = self._slots[self._turn]
+        if slot is None or slot[0].shape != image.shape:
+            slot = (torch.empty(image.shape, dtype=image.dtype,
+                                pin_memory=True),
+                    torch.empty(rays.shape, dtype=rays.dtype,
+                                pin_memory=True),
+                    torch.cuda.Event())
+            self._slots[self._turn] = slot
+        host_image, host_rays, event = slot
+        host_image.copy_(image.contiguous(), non_blocking=True)
+        host_rays.copy_(rays, non_blocking=True)
+        event.record(torch.cuda.current_stream(image.device))
+        self._turn ^= 1
+        return slot
+
+    @staticmethod
+    def _read(slot) -> Tuple[np.ndarray, int]:
+        image, rays, event = slot
+        if event is not None:
+            event.synchronize()
+        return image.numpy(), int(rays.sum())

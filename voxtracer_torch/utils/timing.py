@@ -1,9 +1,10 @@
 """Frame timing instrumentation.
 
 Counterpart of :mod:`voxtracer.utils.timing`: ``Stopwatch`` for
-per-frame dt, ``FpsCounter`` (0.25 s refresh window) for an fps readout,
-and ``StageTimer`` for per-stage wall times.  PyTorch returns before the
-device finishes, so a device stage is closed by
+per-frame dt, ``FpsCounter`` (0.25 s refresh window) for an fps readout
+and, where the caller hands it each frame's traced rays, the exact ray
+rate of the same window, and ``StageTimer`` for per-stage wall times.
+PyTorch returns before the device finishes, so a device stage is closed by
 ``torch.cuda.synchronize`` on the device its result lies on; a stage on
 the CPU needs no closing.
 """
@@ -30,21 +31,31 @@ class Stopwatch:
 
 
 class FpsCounter:
-    """Sliding frame counter refreshed every ``window`` seconds."""
+    """Sliding frame counter refreshed every ``window`` seconds.
+
+    ``rays_per_s`` is the sum of the rays handed to :meth:`tick` (the
+    trace kernel's per-phase ray counters of each frame) over the same
+    window's seconds: the exact ray rate, where the JAX package's
+    viewers print ``H * W * fps``."""
 
     def __init__(self, window: float = 0.25):
         self.window = window
         self.fps = 0.0
+        self.rays_per_s = 0.0
         self._frames = 0
+        self._rays = 0
         self._t0 = time.perf_counter()
 
-    def tick(self) -> float:
+    def tick(self, rays: int = 0) -> float:
         self._frames += 1
+        self._rays += int(rays)
         now = time.perf_counter()
         elapsed = now - self._t0
         if elapsed >= self.window:
             self.fps = self._frames / elapsed
+            self.rays_per_s = self._rays / elapsed
             self._frames = 0
+            self._rays = 0
             self._t0 = now
         return self.fps
 
