@@ -20,9 +20,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
    G-buffer bit-equal, rays and steps of phases b0, s0, b1 equal.
 4. main path: ``Renderer(device="cuda")`` on menger at 1280x720 with the
    bench camera (``bench.py``): 3 warm-up frames, 3 bursts of 12 still
-   frames timed with CUDA events; the trace launch counter must equal
-   the frames rendered.  Then the same frames' trace stage and two
-   whole frames with the plain trace, for comparison.  Then the trace
+   frames timed with CUDA events; the trace and still-epilogue launch
+   counters must equal the frames rendered (2 launches a frame).  Then
+   the same frames' trace stage and two whole frames with the plain
+   trace, for comparison.  Then the trace
    kernel alone (``voxtracer_torch.app.tracebench``) on menger
    1280x720, monu9 1920x1080 (dolly, t=0) and castle 3840x2160
    (static): its time, the steps per phase, the SIMT efficiency
@@ -41,13 +42,16 @@ Phases (each prints one line; any failure raises and exits non-zero):
 7. config 4 (``BASELINE.json``): monu9 1920x1080 on the dolly path,
    denoise r=2 — 3 warm-up frames, 3 bursts of 12 frames continuing
    along the path so that every timed frame moves.  Launch counts:
-   trace = denoise = frames, temporal = moving frames with live
-   history.  Then each kernel against its plain version, and timed
-   alone, on the next frame's inputs and accumulated history; and 2
-   frames with every stage plain against 2 kernel frames from the same
-   state.
+   trace = denoise = encode = frames, temporal = moving frames with live
+   history, still epilogue = the first frame.  Then each kernel against
+   its plain version, and timed alone, on the next frame's inputs and
+   accumulated history; and 2 frames with every stage plain against 2
+   kernel frames from the same state.
 8. config 3: chr_knight 1280x720 on the orbit path, r=0, the same with
-   2 bursts of 8.
+   2 bursts of 8 (encode = moving frames: the first encodes in its still
+   epilogue).  In both, the encode kernel against its plain version on
+   the next frame's inputs, and the row-reading entries of all four frame
+   kernels == their by-value entries.
 9. resample: the history-resample kernel against its plain version at
    1920x1080, C=5, on phase 5's coordinates (dolly and whip pan) and on
    a field with NaN/inf/1e30 entries: bit-equal; kernel and plain times.
@@ -68,7 +72,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
     loop's, replays included.  Then ms/frame of the sequence against the
     per-frame loop, in turns (loop, sequence, sequence, loop), 3 warm
     frames, bursts of 12, CUDA events.  And a mixed path (still, still,
-    pan, pan, still, still, pan) at 320x180 for the segment split.
+    pan, pan, still, still, pan) at 320x180 for the segment split.  The
+    replayed graphs write each frame's image through the epilogue
+    kernels' device slot.
 13. ``voxtracer_torch.app.cli.main`` on the card: menger 1280x720,
     ``--batch 8 --frames 20 --video-dir --save-snapshot``, then
     ``--resume --batch 4 --frames 4``: 20 + 4 PNGs, and the resumed
@@ -83,18 +89,20 @@ Phases (each prints one line; any failure raises and exits non-zero):
     every raw u8 frame that reaches the encoder (through the render
     loop's own frame step and host fetch), and its ray count, == a plain
     ``Renderer.render()`` loop over the same cameras and parameters,
-    whose stages hold the trace, temporal and denoise kernels against
-    their plain versions on every frame's inputs (640x360 at r = 2 and
-    3, 320x180, both scenes; the bars of phases 3, 5 and 6); (b) ``serve()`` on 127.0.0.1:0 with the render loop
+    whose stages hold the trace, temporal, denoise, still-epilogue and
+    encode kernels against their plain versions on every frame's inputs
+    (640x360 at r = 2 and 3, 320x180, both scenes; the bars of phases 3,
+    5, 6 and 19); (b) ``serve()`` on 127.0.0.1:0 with the render loop
     thread: a client reads ``/stream`` for 3 s while ``look`` events are
     posted: client-observed fps, ``stage_stats()``, the MIME type, the
-    exact Mray/s (the trace kernel's ray counters), and the five
+    exact Mray/s (the trace kernel's ray counters), and the seven
     kernels' launches per frame of the loop, read around the run;
     (c) ``voxtracer_torch.app.ibench.main(["--seconds", "3"])``: its four
     rows (web chr_knight and menger 640x360, tui chr_knight 256x144,
     wall chr_knight 1280x720).
-17. kernel hot-reload: ``ops/_build`` pointed at a copy of ``csrc/`` in
-    a temporary directory (the repo's sources are never edited); a
+17. kernel hot-reload: ``ops/_build`` pointed at a copy of ``csrc/`` (six
+    sources) in a temporary directory (the repo's sources are never
+    edited); a
     comment appended to one ``.cu`` and ``KernelWatcher.poll()``: a new
     library path, the sequence path's graphs dropped, frames (a render
     loop and a replayed sequence) == those of the library before; then a
@@ -104,17 +112,32 @@ Phases (each prints one line; any failure raises and exits non-zero):
     the card at 1280x720 (menger) with its time; ``render_scene`` on the
     card against ``--device cpu`` at 160x90: max abs error (bar 1e-5,
     the JAX comparison's) and values differing.
+19. (after phase 6) the frame epilogue: the still-epilogue and encode
+    kernels (csrc/epilogue.cu) against their plain versions, by value
+    and by row, with and without the modulated linear, the still
+    epilogue also without albedo (the blend alone): menger 1280x720 at
+    the bench camera with history valid and invalid, menger 333x187,
+    333x187 planes with NaN, +-inf, negative and > 1 values, monu9
+    1920x1080 (phase 5's dolly planes; the encode of its temporal output
+    at r = 0 and of its denoised frame at r = 2), castle 3840x2160, a
+    cropped encode, and every float32 in [0, 1] through the encode:
+    float32 outputs bit-equal, u8 values that differ at all (the bar:
+    none beyond 1); then kernel, plain and bound times and the share at
+    720p, 1080p and 4K.
 
 Then (phase 15) checks that no module of the JAX package
 (``voxtracer``), JAX or Triton was imported, prints the per-kernel JSON
-line (each kernel's launches, error, times, bound and share of it,
+line (the five ported TPU kernels and the frame epilogue's two, which
+replace an XLA fusion and no ``pallas_call``: each kernel's launches,
+error, times, bound and share of it,
 launches per frame of each config that ran it, its launches on phase
 12's sequences and per frame of phase 16's viewer loop, and the time of
 one PyTorch call computing the same function, where there is one), then
 the device line last.
 
 Bounds (``bound_ms``): the larger of the bytes the function must move
-(each input read once, each output written once) over 3.35 TB/s and
+(each input read once, each output written once; for the epilogue
+kernels ``epilogue_bytes`` and ``encode_bytes``) over 3.35 TB/s and
 its operations over the card's peak for their type: float32 operations
 over 67 TFLOP/s, or, for the integer and control work of the trace and
 stall kernels, lane operations over the issue rate, 33.5 T a second
@@ -154,9 +177,14 @@ BENCH_POS, BENCH_DIR = tracebench.BENCH_POS, tracebench.BENCH_DIR
 # pixel; of the resample kernel per pixel and plane.
 TEMPORAL_FLOPS_PER_PX = 200
 RESAMPLE_FLOPS_PER_PX_PLANE = 9
+# float32 operations of the still epilogue per pixel (the blend ~95, the
+# modulate 9, the encode ~25 a channel with powf's ~20) and of the
+# encode per pixel
+EPILOGUE_FLOPS_PER_PX = 180
+ENCODE_FLOPS_PER_PX = 80
 
 # the kernels that render_sequence / render_burst replay
-SEQUENCE_KERNELS = ("trace", "temporal", "denoise")
+SEQUENCE_KERNELS = ("trace", "temporal", "denoise", "epilogue", "encode")
 
 
 def say(phase, msg):
@@ -401,8 +429,10 @@ def phase_main(smi):
     counts = {name: k.launches for name, k in kernels.items()}
     launches = counts["trace"]
     frames = WARMUP + BURSTS * FRAMES
+    # a still frame at r = 0: the trace and the still epilogue
     assert counts == {"trace": frames, "temporal": 0, "denoise": 0,
-                      "resample": 0, "stall": 0}, counts
+                      "resample": 0, "stall": 0, "epilogue": frames,
+                      "encode": 0}, counts
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
 
     image = out["image"].cpu().numpy()
@@ -467,11 +497,17 @@ def phase_main(smi):
 
 
 def frame_kernels():
-    """The launch-counting wrappers of the port's five kernels, by
+    """The launch-counting wrappers of the port's seven kernels, by
     name: every path zeroes and reads them all, those it must not launch
     too."""
     from voxtracer_torch.app import stallbench
-    from voxtracer_torch.ops import denoise, reproject, temporal, trace
+    from voxtracer_torch.ops import (
+        denoise,
+        epilogue,
+        reproject,
+        temporal,
+        trace,
+    )
 
     return {
         "trace": trace.render_sample_cuda,
@@ -479,6 +515,8 @@ def frame_kernels():
         "denoise": denoise.denoise_cuda,
         "resample": reproject.resample_cuda,
         "stall": stallbench.run_cuda,
+        "epilogue": epilogue.still_epilogue_cuda,
+        "encode": epilogue.encode_cuda,
     }
 
 
@@ -630,6 +668,289 @@ def phase_denoise(smi, dolly):
     return max_err
 
 
+def n_differ(a, b):
+    """How many values of ``a`` and ``b`` differ: their bits (float32),
+    with any NaN equal to any NaN, or their values (u8)."""
+    if a.dtype == torch.uint8:
+        return int((a != b).sum())
+    nan = a.isnan() & b.isnan()
+    return int(((a.view(torch.int32) != b.view(torch.int32)) & ~nan).sum())
+
+
+def u8_max_diff(a, b):
+    return int((a.int() - b.int()).abs().max()) if a.numel() else 0
+
+
+def epilogue_bytes(h, w, albedo=True, linear=False):
+    """What the still epilogue must move: 12 float32 planes read (colour,
+    normal, old colour, depth, old blend, old depth), 4 written (blend,
+    next blend); with albedo 3 more read, the u8 image written and, with
+    the linear, 3 more written."""
+    nbytes = 4 * 12 + 4 * 4
+    if albedo:
+        nbytes += 4 * 3 + 3 + (4 * 3 if linear else 0)
+    return nbytes * h * w
+
+
+def encode_bytes(h, w, albedo, linear=False):
+    """What the encode must move: 3 float32 planes read (3 more with the
+    albedo), the u8 image written (and the modulated linear)."""
+    return (4 * 3 + (4 * 3 if albedo else 0) + 3
+            + (4 * 3 if albedo and linear else 0)) * h * w
+
+
+def compare_still(planes, albedo, row):
+    """The still epilogue kernel, by value and by row, with and without
+    the linear, against its plain version (the host row).  Returns the
+    float32 values and u8 values that differ, and the u8 max diff."""
+    from voxtracer_torch.engine.params import DeviceRow
+    from voxtracer_torch.ops import epilogue
+
+    dev_row = DeviceRow(torch.from_numpy(row[None].copy()).cuda()[0], row)
+    want = epilogue.still_epilogue_plain(*planes, albedo, row, True)
+    f32 = u8 = u8_max = 0
+    for params in (row, dev_row):
+        for keep in (False, True):
+            got = epilogue.still_epilogue_cuda(*planes, albedo, params, keep)
+            torch.cuda.synchronize()
+            for i, (a, b) in enumerate(zip(got, want)):
+                if a is None:
+                    assert i == 2 and not keep or albedo is None, (i, keep)
+                    continue
+                if a.dtype == torch.uint8:
+                    u8 += n_differ(a, b)
+                    u8_max = max(u8_max, u8_max_diff(a, b))
+                else:
+                    f32 += n_differ(a, b)
+    return f32, u8, u8_max
+
+
+def compare_encode(args):
+    """The encode kernel (by value and by row where it modulates, with
+    and without the linear) against its plain version on ``args``
+    (linear, height, width[, albedo, host row]).  Returns the float32
+    and u8 values that differ and the u8 max diff."""
+    from voxtracer_torch.engine.params import DeviceRow
+    from voxtracer_torch.ops import epilogue
+
+    want_img, want_out = epilogue.encode_plain(*args, keep_linear=True)
+    entries = [args]
+    if len(args) > 3:
+        row = args[4]
+        entries.append((*args[:4], DeviceRow(
+            torch.from_numpy(row[None].copy()).cuda()[0], row)))
+    f32 = u8 = u8_max = 0
+    for entry in entries:
+        for keep in (False, True):
+            img, out = epilogue.encode_cuda(*entry, keep_linear=keep)
+            torch.cuda.synchronize()
+            u8 += n_differ(img, want_img)
+            u8_max = max(u8_max, u8_max_diff(img, want_img))
+            if out is not None:
+                f32 += n_differ(out, want_out)
+            else:
+                assert len(args) > 3 and not keep
+    return f32, u8, u8_max
+
+
+def nan_planes(h, w, rng):
+    """Still-epilogue planes with NaN, +-inf, negative and > 1 values in
+    every input plane (seeded)."""
+    def plane(c, lo, hi):
+        a = rng.uniform(lo, hi, (c, h, w) if c else (h, w)).astype(np.float32)
+        flat = a.reshape(-1)
+        for value in (np.nan, np.inf, -np.inf, -3.5, 7.25):
+            flat[rng.integers(0, flat.size, flat.size // 50)] = value
+        return torch.from_numpy(a).cuda()
+
+    depth = plane(0, -1.0, 40.0)
+    planes = (plane(3, -0.5, 2.5), plane(3, -1.0, 1.0), depth,
+              plane(3, -0.5, 2.5), plane(0, 0.0, 1.2),
+              depth + torch.from_numpy(
+                  rng.uniform(-0.05, 0.05, (h, w)).astype(np.float32)).cuda())
+    return planes, plane(3, -0.2, 1.5)
+
+
+def phase_epilogue(smi, dolly, poses):
+    """Phase 19: the still-epilogue and encode kernels against their
+    plain versions on the card (menger 1280x720 at the bench camera with
+    history valid and invalid, a ragged 333x187, planes with NaN, +-inf,
+    negative and > 1 values, castle 3840x2160, monu9 1920x1080's dolly
+    temporal output at r = 0 and its denoised frame at r = 2, and every
+    float32 in [0, 1] through the encode), by value and by row, with and
+    without the linear: values that differ; then times and bounds.
+    Returns the epilogue's entry (times at 1280x720) and the largest u8
+    difference seen."""
+    from voxtracer_torch.app import camera_paths
+    from voxtracer_torch.engine.camera import Camera
+    from voxtracer_torch.engine.params import (
+        DenoiseParams,
+        RenderParams,
+        TemporalParams,
+        pack_denoise_params,
+        pack_frame_rows,
+    )
+    from voxtracer_torch.engine.scene import SceneTables, load_scene
+    from voxtracer_torch.ops import denoise, epilogue
+    from voxtracer_torch.ops.noise import blue_noise_buffer
+
+    noise = torch.from_numpy(blue_noise_buffer()).cuda()
+    rng = np.random.default_rng(19)
+
+    def frame_row(cam_rows, old_rows, valid, tp=TemporalParams(),
+                  dp=DenoiseParams()):
+        return pack_frame_rows([cam_rows], old_rows, valid, 2,
+                               RenderParams(), tp, dp)[0]
+
+    def still_case(scene, cam, w, h):
+        """A still frame's planes: frame 2's trace over frame 1's as the
+        history, with random old blends."""
+        tables = SceneTables(scene, "cuda")
+        old = trace_cuda(tables, noise, cam, w, h, frame=1)
+        new = trace_cuda(tables, noise, cam, w, h, frame=2)
+        blend = torch.from_numpy(
+            rng.uniform(0.02, 1.0, (h, w)).astype(np.float32)).cuda()
+        return ((new["color"], new["normal"], new["depth"], old["color"],
+                 blend, old["depth"]), new["albedo"])
+
+    menger = load_scene("menger")
+    bench_cam = Camera(position=np.array(BENCH_POS),
+                       direction=np.array(BENCH_DIR))
+    castle = load_scene("castle")
+    castle_cam = camera_paths.static(castle)(0.0)
+    cases = []  # (label, planes, albedo, row, timed)
+    planes, albedo = still_case(menger, bench_cam, WIDTH, HEIGHT)
+    rows = bench_cam.rows(WIDTH, HEIGHT)
+    for valid in (True, False):
+        cases.append((f"menger {WIDTH}x{HEIGHT} history valid {valid}",
+                      planes, albedo, frame_row(rows, rows, valid), valid))
+    cw, ch = 333, 187
+    planes, albedo = still_case(menger, bench_cam, cw, ch)
+    rows = bench_cam.rows(cw, ch)
+    cases.append((f"menger {cw}x{ch}", planes, albedo,
+                   frame_row(rows, rows, True), False))
+    planes, albedo = nan_planes(ch, cw, rng)
+    odd = (TemporalParams(sample_blending=0.3, maximum_blending=0.9,
+                          blending_distance_cutoff=0.2),
+           DenoiseParams(albedo_factor=0.35))
+    cases.append((f"NaN/inf/negative/>1 planes {cw}x{ch}", planes, albedo,
+                  frame_row(rows, rows, True, *odd), False))
+    # phase 5's dolly frame: its G-buffer, blend and cameras
+    _, g, blended = dolly
+    _, args, cam_rows, old_rows = poses[0]
+    dolly_row = frame_row(cam_rows, old_rows, True)
+    cases.append(("monu9 1920x1080 dolly planes", args[:6], g["albedo"],
+                  dolly_row, True))
+    planes, albedo = still_case(castle, castle_cam, 3840, 2160)
+    rows = castle_cam.rows(3840, 2160)
+    cases.append(("castle 3840x2160", planes, albedo,
+                  frame_row(rows, rows, True), True))
+
+    u8_worst = 0
+    report, timed = [], {}
+    for label, planes, albedo, row, time_it in cases:
+        h, w = planes[2].shape
+        f32, u8, u8_max = compare_still(planes, albedo, row)
+        f32_b, _, _ = compare_still(planes, None, row)  # the blend alone
+        u8_worst = max(u8_worst, u8_max)
+        hit = planes[2] >= 0
+        kept = int(((epilogue.still_epilogue_plain(
+            *planes, None, row)[1] < 0.5) & hit).sum())
+        report.append(f"{label}: f32 values differing {f32} (blend alone "
+                      f"{f32_b}), u8 values differing {u8} (max {u8_max}), "
+                      f"history kept on {kept} px")
+        assert f32 == 0 and f32_b == 0 and u8_max <= 1, (label, f32, u8)
+        if not time_it:
+            continue
+        args_k = (*planes, albedo, row)
+        ms = cuda_time(lambda: epilogue.still_epilogue_cuda(*args_k), 20)
+        ms_lin = cuda_time(
+            lambda: epilogue.still_epilogue_cuda(*args_k, True), 20)
+        ms_blend = cuda_time(
+            lambda: epilogue.still_epilogue_cuda(*planes, None, row), 20)
+        plain = cuda_time(lambda: epilogue.still_epilogue_plain(*args_k), 3)
+        b, by = bound(epilogue_bytes(h, w), EPILOGUE_FLOPS_PER_PX * h * w,
+                      FP32_FLOPS_PER_S)
+        b_lin, _ = bound(epilogue_bytes(h, w, linear=True),
+                         EPILOGUE_FLOPS_PER_PX * h * w, FP32_FLOPS_PER_S)
+        b_blend, _ = bound(epilogue_bytes(h, w, albedo=False),
+                           EPILOGUE_FLOPS_PER_PX * h * w, FP32_FLOPS_PER_S)
+        timed[(w, h)] = {"ms": ms, "plain_ms": plain, "bound_ms": b,
+                         "bound_by": by}
+        report.append(
+            f"  still epilogue {w}x{h}: kernel {ms:.4f} ms (bound {b:.4f}, "
+            f"{by}; share {b / ms:.3f}), with the linear {ms_lin:.4f} "
+            f"(bound {b_lin:.4f}, share {b_lin / ms_lin:.3f}), the blend "
+            f"alone {ms_blend:.4f} (bound {b_blend:.4f}, share "
+            f"{b_blend / ms_blend:.3f}); plain {plain:.3f} ms")
+    for line in report:
+        say(19, f"{line} [{smi}]")
+
+    # the encode: monu9's dolly blend at r = 0 (with albedo) and its
+    # denoised frame at r = 2; the NaN planes, cropped from a larger
+    # input; every float32 in [0, 1]
+    h, w = g["depth"].shape
+    denoised = denoise.denoise_cuda(
+        blended, g["normal"], g["depth"], g["albedo"], g["node"],
+        pack_denoise_params(cam_rows, DenoiseParams()), 2)
+    nan_in, nan_alb = nan_planes(ch + 3, cw + 5, rng)
+    nan_lin = nan_in[0]
+    nan_row = frame_row(bench_cam.rows(cw, ch), bench_cam.rows(cw, ch), True,
+                        *odd)
+    report = []
+    for elabel, eargs, time_it in (
+            (f"monu9 {w}x{h} dolly blend, r = 0",
+             (blended, h, w, g["albedo"], dolly_row), True),
+            (f"monu9 {w}x{h} denoised r = 2", (denoised, h, w), True),
+            (f"NaN planes {cw + 5}x{ch + 3} cropped to {cw}x{ch}, modulated",
+             (nan_lin, ch, cw, nan_alb, nan_row), False),
+            (f"NaN planes {cw + 5}x{ch + 3} cropped to {cw}x{ch}",
+             (nan_lin, ch, cw), False)):
+        f32, u8, u8_max = compare_encode(eargs)
+        u8_worst = max(u8_worst, u8_max)
+        line = (f"encode {elabel}: f32 values differing {f32}, u8 values "
+                f"differing {u8} (max {u8_max})")
+        assert f32 == 0 and u8_max <= 1, (elabel, f32, u8)
+        if time_it:
+            albedo = len(eargs) > 3
+            ms = cuda_time(lambda: epilogue.encode_cuda(*eargs), 20)
+            plain = cuda_time(lambda: epilogue.encode_plain(*eargs), 3)
+            b, by = bound(encode_bytes(h, w, albedo),
+                          ENCODE_FLOPS_PER_PX * h * w, FP32_FLOPS_PER_S)
+            line += (f"; kernel {ms:.4f} ms (bound {b:.4f}, {by}; share "
+                     f"{b / ms:.3f}), plain {plain:.3f} ms")
+        report.append(line)
+    # every float32 in [0, 1] (the clamp sends all others to 0, 1 or
+    # NaN), in chunks of three 4096x4096 planes, and the specials
+    top = int(np.float32(1.0).view(np.int32))
+    chunk = 3 * 4096 * 4096
+    u8_all = u8_all_max = 0
+    for start in range(0, top + 1, chunk):
+        bits = torch.arange(start, start + chunk, dtype=torch.int32,
+                            device="cuda").clamp_max_(top)
+        lin = bits.view(torch.float32).view(3, 4096, 4096)
+        img, _ = epilogue.encode_cuda(lin, 4096, 4096)
+        want, _ = epilogue.encode_plain(lin, 4096, 4096)
+        u8_all += n_differ(img, want)
+        u8_all_max = max(u8_all_max, u8_max_diff(img, want))
+    special = torch.tensor(
+        [np.nan, np.inf, -np.inf, -0.0, -1e-30, -5.0, 1.0000001, 3e38, 2.0],
+        dtype=torch.float32, device="cuda").repeat(3, 1)[:, None, :]
+    img, _ = epilogue.encode_cuda(special.contiguous(), 1, 9)
+    want, _ = epilogue.encode_plain(special, 1, 9)
+    u8_all += n_differ(img, want)
+    u8_worst = max(u8_worst, u8_all_max)
+    report.append(f"encode of every float32 in [0, 1] ({top + 1} values) "
+                  f"and of NaN, +-inf, -0, negatives and > 1: u8 values "
+                  f"differing {u8_all} (max {u8_all_max})")
+    for line in report:
+        say(19, f"{line} [{smi}]")
+    assert u8_all_max <= 1 and int((img != want).sum()) == 0
+    entry = {"max_abs_err": float(u8_worst), **timed[(WIDTH, HEIGHT)],
+             "times_by_size": {f"{w}x{h}": t for (w, h), t in timed.items()}}
+    return entry, u8_worst
+
+
 def drive_path(phase, label, scene_name, w, h, path_name, radius, warmup,
                bursts, frames, smi):
     """A moving camera path through ``Renderer(device="cuda")``: warm-up
@@ -641,12 +962,13 @@ def drive_path(phase, label, scene_name, w, h, path_name, radius, warmup,
     from voxtracer_torch.app import camera_paths
     from voxtracer_torch.engine.params import (
         pack_denoise_params,
+        pack_frame_rows,
         pack_temporal_params,
         pack_trace_params,
     )
     from voxtracer_torch.engine.pipeline import Renderer, camera_moved
     from voxtracer_torch.engine.scene import load_scene
-    from voxtracer_torch.ops import denoise, temporal, trace
+    from voxtracer_torch.ops import denoise, epilogue, temporal, trace
 
     kernels = frame_kernels()
     scene = load_scene(scene_name)
@@ -678,8 +1000,11 @@ def drive_path(phase, label, scene_name, w, h, path_name, radius, warmup,
     n = warmup + bursts * frames
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     assert moving == n - 1, f"{moving} moving frames of {n}"
+    # the first frame is still: the still epilogue (at r >= 1 its blend
+    # alone); every frame at r >= 1 and every moving one encodes
     want = {"trace": n, "temporal": moving, "denoise": n if radius else 0,
-            "resample": 0, "stall": 0}
+            "resample": 0, "stall": 0, "epilogue": n - moving,
+            "encode": n if radius else moving}
     assert launches == want, f"launches {launches} != {want}"
 
     image = out["image"].cpu().numpy()
@@ -770,6 +1095,24 @@ def drive_path(phase, label, scene_name, w, h, path_name, radius, warmup,
         (entries["denoise"]["bound_ms"],
          entries["denoise"]["bound_by"]) = denoisebench.denoise_bound(
              h, w, radius)
+    # the encode of the frame: the blend modulated at r = 0, the
+    # denoised frame at r >= 1
+    frame_row = pack_frame_rows([rows], r.state["old_cam"], True, n + 1,
+                                r.render_params, r.temporal_params,
+                                r.denoise_params)[0]
+    eargs = ((kc, h, w, g["albedo"], frame_row) if not radius
+             else (kd, h, w))
+    f32, u8, u8_max = compare_encode(eargs)
+    assert f32 == 0 and u8_max <= 1, (f32, u8, u8_max)  # phase 19's bar
+    checks += (f"; encode f32 values differing {f32}, u8 values differing "
+               f"{u8}")
+    stage["encode"] = cuda_time(lambda: epilogue.encode_cuda(*eargs), 20)
+    stage["encode plain"] = cuda_time(lambda: epilogue.encode_plain(*eargs),
+                                      3)
+    entries["encode"] = {"max_abs_err": float(u8_max), "ms": stage["encode"],
+                         "plain_ms": stage["encode plain"]}
+    entries["encode"]["bound_ms"], entries["encode"]["bound_by"] = bound(
+        encode_bytes(h, w, not radius), 0, FP32_FLOPS_PER_S)
     say(phase, "kernels alone on the next frame's inputs: "
                + ", ".join(f"{k} {v:.4f} ms" for k, v in stage.items())
                + f"; {checks} [{smi}]")
@@ -786,6 +1129,8 @@ def drive_path(phase, label, scene_name, w, h, path_name, radius, warmup,
     r.temporal = temporal.temporal_blend_reproject_plain
     if radius:
         r.denoise = denoise.denoise_plain
+    r.still_epilogue = epilogue.still_epilogue_plain
+    r.encode = epilogue.encode_plain
     plain_images = []
     plain_ms = cuda_time(
         lambda: plain_images.append(r.render(poses[len(plain_images)])
@@ -793,6 +1138,8 @@ def drive_path(phase, label, scene_name, w, h, path_name, radius, warmup,
     r.trace = trace.render_sample
     r.temporal = temporal.temporal_blend_reproject
     r.denoise = denoise.denoise
+    r.still_epilogue = epilogue.still_epilogue
+    r.encode = epilogue.encode
     r.state, r.frame_number = state, n0
     for cam in poses:
         img_kernel = r.render(cam)["image"]
@@ -812,7 +1159,7 @@ def compare_row_entries(phase, r, cam_rows, frame, g, radius, smi):
     and modulate against the forms reading Python numbers.  The row is
     the second of two on the device."""
     from voxtracer_torch.engine import params as P
-    from voxtracer_torch.ops import denoise, temporal, trace
+    from voxtracer_torch.ops import denoise, epilogue, temporal, trace
 
     h, w = g["depth"].shape
     rows = P.pack_frame_rows(
@@ -856,6 +1203,22 @@ def compare_row_entries(phase, r, cam_rows, frame, g, radius, smi):
         times["denoise"] = (
             cuda_time(lambda: denoise_entry(dev_rows), 20),
             cuda_time(lambda: denoise_entry(vec["denoise"]), 20))
+    # the epilogue kernels: the still epilogue on this frame's planes,
+    # the encode of the blend at r = 0, each with the linear
+    def still_entry(params):
+        return epilogue.still_epilogue_cuda(*planes, g["albedo"], params, True)
+
+    def encode_entry(params):
+        return epilogue.encode_cuda(vc, h, w, g["albedo"], params, True)
+
+    for entry in (still_entry, encode_entry):
+        by_row, by_value = entry(dev_rows), entry(row)
+        assert all(torch.equal(a, b) for a, b in zip(by_row, by_value)
+                   if a is not None), entry.__name__
+    times["still epilogue"] = (cuda_time(lambda: still_entry(dev_rows), 20),
+                               cuda_time(lambda: still_entry(row), 20))
+    times["encode"] = (cuda_time(lambda: encode_entry(dev_rows), 20),
+                       cuda_time(lambda: encode_entry(row), 20))
     # the plain torch stages of a still frame and of r = 0
     sc, sb = temporal.temporal_blend_still_row(*planes, dev_rows.row)
     pc, pb = temporal.temporal_blend_still_planar(
@@ -866,7 +1229,8 @@ def compare_row_entries(phase, r, cam_rows, frame, g, radius, smi):
         denoise._modulate(vc, g["albedo"], vec["denoise"][14]))
     torch.cuda.synchronize()
     say(phase, "row-reading entries == by-value entries (trace, temporal"
-               + (", denoise" if radius else "") + "), row-reading still "
+               + (", denoise" if radius else "") + ", still epilogue, "
+               "encode), row-reading still "
                "blend and modulate == the forms reading Python numbers; ms "
                "by row / by value: " + ", ".join(
                    f"{k} {a:.4f} / {b:.4f}" for k, (a, b) in times.items())
@@ -1259,7 +1623,7 @@ def phase_harness(smi):
 def phase_interactive(smi):
     """Phase 16: the web viewer's frames against a plain render() loop,
     a served stream read by a client, and the ibench rows.  Returns the
-    five kernels' launches per frame of the viewer loop."""
+    seven kernels' launches per frame of the viewer loop."""
     from voxtracer_torch.app import camera_paths, ibench, web
     from voxtracer_torch.engine.pipeline import Renderer
     from voxtracer_torch.engine.scene import load_scene
@@ -1420,8 +1784,11 @@ def phase_interactive(smi):
     assert stream_type == "multipart/x-mixed-replace; boundary=vtframe"
     per_frame = {name: n / loop_frames for name, n in launches.items()}
     assert launches["trace"] == launches["denoise"] == loop_frames, launches
+    assert launches["encode"] == loop_frames, launches
     assert launches["resample"] == launches["stall"] == 0, launches
     assert 0 < launches["temporal"] < loop_frames, launches
+    # at r = 2 a frame that does not reproject runs the still blend
+    assert launches["epilogue"] + launches["temporal"] == loop_frames
     mrays_run = rays_published[0] / elapsed / 1e6
     say(16, f"serve() chr_knight {w}x{h} r={radius}: client read "
             f"{len(frames)} frames of /stream in {elapsed:.3f} s = "
@@ -1445,13 +1812,13 @@ def phase_interactive(smi):
 def hold_stages(r):
     """Make renderer ``r``'s stages launch each frame kernel and hold it
     against its plain version on the same inputs, with the bars of
-    phases 3, 5 and 6 and ``drive_path``.  The stages still return the
+    phases 3, 5, 6 and 19 and ``drive_path``.  The stages still return the
     kernel's result.  Returns the frames held and the largest error of
     each kernel, filled in as ``r`` renders."""
-    from voxtracer_torch.ops import denoise, temporal, trace
+    from voxtracer_torch.ops import denoise, epilogue, temporal, trace
 
     held = {k: {"frames": 0, "err": 0.0}
-            for k in ("trace", "temporal", "denoise")}
+            for k in ("trace", "temporal", "denoise", "epilogue", "encode")}
 
     def note(name, err):
         held[name]["frames"] += 1
@@ -1486,7 +1853,26 @@ def hold_stages(r):
         note("denoise", float((k - p).abs().max()))
         return k
 
+    def held_outputs(name, got, want):
+        """The kernel's outputs against the plain version's: float32
+        bit-equal, u8 equal (``render()`` passes no ``dest``)."""
+        pairs = [(a, b) for a, b in zip(got, want)
+                 if a is not None and b is not None]
+        assert sum(n_differ(a, b) for a, b in pairs) == 0, name
+        note(name, float(max((u8_max_diff(a, b) for a, b in pairs
+                              if a.dtype == torch.uint8), default=0)))
+        return got
+
+    def still_stage(*args):
+        return held_outputs("epilogue", epilogue.still_epilogue_cuda(*args),
+                            epilogue.still_epilogue_plain(*args))
+
+    def encode_stage(*args):
+        return held_outputs("encode", epilogue.encode_cuda(*args),
+                            epilogue.encode_plain(*args))
+
     r.trace, r.temporal, r.denoise = trace_stage, temporal_stage, denoise_stage
+    r.still_epilogue, r.encode = still_stage, encode_stage
     return held
 
 
@@ -1631,6 +2017,7 @@ def main():
     phase_trace_sizes(smi)
     temporal_err, dolly, poses = phase_temporal(smi)
     denoise_err = phase_denoise(smi, dolly)
+    epilogue_entry, epilogue_err = phase_epilogue(smi, dolly, poses)
     per_frame["config 4"], launches, entries = drive_path(
         7, "config 4: monu9", "monu9", 1920, 1080, "dolly", 2, WARMUP, BURSTS,
         FRAMES, smi)
@@ -1657,17 +2044,22 @@ def main():
     phase_reload(smi)
     phase_whitted(smi)
     check_no_jax_package()
-    # The trace's times, bound and launches come from the main path
-    # (config 2, phase 4), the temporal and denoise kernels' from config
-    # 4's frame, the resample kernel's launches from the harness; each
-    # error is the largest of every comparison of the kernel with its
-    # plain version
+    # The trace's and the still epilogue's launches come from the main
+    # path (config 2, phase 4), the trace's times and bound too, the
+    # epilogue's from phase 19 at config 2's size; the temporal, denoise
+    # and encode kernels' from config 4's frame, the resample kernel's
+    # launches from the harness; each error is the largest of every
+    # comparison of the kernel with its plain version (u8 values for the
+    # epilogue and the encode, whose float32 outputs are bit-equal)
     launches["trace"] = main_counts["trace"]
+    launches["epilogue"] = main_counts["epilogue"]
+    entries["epilogue"] = epilogue_entry
     entries["trace"] = {
         **main_trace, "max_abs_err": max(
             main_trace["max_abs_err"], trace_err,
             entries["trace"]["max_abs_err"])}
     for name, err in (("temporal", temporal_err), ("denoise", denoise_err),
+                      ("encode", epilogue_err),
                       *((k, e["max_abs_err"]) for k, e in config3.items()),
                       *viewer_err.items()):
         entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"], err)
@@ -1675,7 +2067,7 @@ def main():
         entries[name]["launches_per_frame"] = {
             config: counts[name] for config, counts in per_frame.items()}
     # this slice's path: the launches read around phase 12's replayed
-    # sequences, which run three of the five kernels and no other
+    # sequences, which run five of the seven kernels and no other
     for name in entries:
         entries[name]["sequence_launches"] = {
             config: counts[name] for config, (counts, _) in sequence.items()}
@@ -1683,7 +2075,8 @@ def main():
         assert (total > 0) == (name in SEQUENCE_KERNELS), (name, total)
         # phase 16's web viewer loop, chr_knight 640x360 r=2
         entries[name]["viewer_launches_per_frame"] = viewer_per_frame[name]
-    for name in ("trace", "temporal", "denoise", "stall"):
+    for name in ("trace", "temporal", "denoise", "stall", "epilogue",
+                 "encode"):
         entries[name]["library_ms"] = None  # no one PyTorch call computes it
     sources = {
         "trace": ("voxtracer_torch/csrc/trace.cu",
@@ -1696,6 +2089,15 @@ def main():
                      "voxtracer/ops/reproject_pallas.py:301"),
         "stall": ("voxtracer_torch/csrc/stallbench.cu",
                   "voxtracer/app/stallbench.py:171"),
+        # no pallas_call: the XLA fusion of the frame's tail
+        "epilogue": ("voxtracer_torch/csrc/epilogue.cu",
+                     "voxtracer/engine/pipeline.py:467-481 (XLA fusion of "
+                     "voxtracer/ops/temporal.py:104 and "
+                     "voxtracer/ops/denoise_pallas.py:281-283 with the "
+                     "encode)"),
+        "encode": ("voxtracer_torch/csrc/epilogue.cu",
+                   "voxtracer/engine/pipeline.py:552-553 (XLA fusion of "
+                   "voxtracer/ops/tonemap.py:37)"),
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "launches_per_frame", "sequence_launches", "library_ms")

@@ -1,7 +1,8 @@
 """The CUDA kernels (trace, temporal reprojection, denoise, history
-resample, stall microbenchmark) against their plain torch versions and
-the golden file, and the Renderer and the BASELINE harness on the
-card.  Needs an NVIDIA GPU and nvcc; skips elsewhere.  On the card:
+resample, stall microbenchmark, the frame epilogue's still epilogue and
+encode) against their plain torch versions and the golden file, and the
+Renderer and the BASELINE harness on the card.  Needs an NVIDIA GPU and
+nvcc; skips elsewhere.  On the card:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 
@@ -19,7 +20,9 @@ differently from torch's), at every template instance of the kernel,
 its runtime-radius instance and the instance for radii whose tile does
 not fit shared memory, on sizes that are no multiple of its tile.
 Resample: bit-equal, NaN where a coordinate is not finite (no
-transcendental).  Stall microbenchmark: integer, equal.  A kernel's
+transcendental).  Stall microbenchmark: integer, equal.  Epilogue and
+encode: float32 outputs bit-equal, u8 equal (powf as torch's pow kernel
+calls it), NaN and +-inf planes included.  A kernel's
 row-reading entry equals its by-value entry, the row-reading still blend
 and modulate equal the forms that read Python numbers, and a sequence
 replayed from CUDA graphs equals the same frames from ``render()``: all
@@ -54,7 +57,7 @@ from voxtracer_torch.engine.scene import (
     VoxelList,
     load_scene,
 )
-from voxtracer_torch.ops import denoise, reproject, temporal, trace
+from voxtracer_torch.ops import denoise, epilogue, reproject, temporal, trace
 from voxtracer_torch.ops.noise import blue_noise_buffer, white_noise_buffer
 from voxtracer_torch.scene import grid
 
@@ -156,10 +159,12 @@ def test_renderer_on_cuda_runs_the_kernel(cuda):
     gpu = Renderer(scene=scene, height=48, width=64, device="cuda")
     cpu = Renderer(scene=scene, height=48, width=64, device="cpu")
     before = trace.render_sample_cuda.launches
+    still = epilogue.still_epilogue_cuda.launches
     for _ in range(3):
         out_gpu = gpu.render(MENGER)
         out_cpu = cpu.render(MENGER)
     assert trace.render_sample_cuda.launches - before == 3
+    assert epilogue.still_epilogue_cuda.launches - still == 3
     diff = np.abs(out_gpu["image"].cpu().numpy().astype(int)
                   - out_cpu["image"].numpy().astype(int))
     assert (diff > 1).mean() <= 0.005
@@ -400,6 +405,161 @@ def test_row_reading_still_blend_and_modulate_equal_by_value(cuda):
                         rows[1][ROW_DENOISE:ROW_DENOISE + 16], 0))
 
 
+def _bits_equal(a, b):
+    """Equal bit for bit (float32 NaNs included) or, for u8, in value."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def _epilogue_planes(h, w, device, seed=0, specials=False):
+    """Still-epilogue planes (colour, normal, depth, old colour, old
+    blend, old depth) and an albedo plane, seeded; with ``specials`` NaN,
+    +-inf, negative and > 1 values in every plane."""
+    rng = np.random.default_rng(seed)
+    depth = rng.uniform(1.0, 30.0, (h, w)).astype(np.float32)
+    depth[rng.random((h, w)) < 0.1] = -1.0
+    normal = rng.normal(size=(3, h, w)).astype(np.float32)
+    normal /= np.linalg.norm(normal, axis=0, keepdims=True)
+    arrays = [rng.uniform(-0.3, 2.0, (3, h, w)).astype(np.float32),
+              normal.astype(np.float32), depth,
+              rng.uniform(0.0, 1.5, (3, h, w)).astype(np.float32),
+              rng.uniform(0.02, 1.0, (h, w)).astype(np.float32),
+              (depth + rng.uniform(-0.01, 0.01, (h, w))).astype(np.float32),
+              rng.uniform(0.0, 1.2, (3, h, w)).astype(np.float32)]
+    if specials:
+        for a in arrays:
+            flat = a.reshape(-1)
+            for v in (np.nan, np.inf, -np.inf, -2.5, 4.0):
+                flat[rng.integers(0, flat.size, max(1, flat.size // 40))] = v
+    t = [torch.from_numpy(a).to(device) for a in arrays]
+    return tuple(t[:6]), t[6]
+
+
+def _epilogue_row(w, h, valid=True, factor=0.35):
+    rows = MENGER.rows(w, h)
+    tp = TemporalParams(blending_distance_cutoff=0.05)
+    return pack_frame_rows([rows], rows, valid, 2, RenderParams(), tp,
+                           DenoiseParams(albedo_factor=factor))[0]
+
+
+def _device_row(row, device):
+    return DeviceRow(torch.from_numpy(row.copy()).to(device), row)
+
+
+@pytest.mark.parametrize("valid", [True, False], ids=["history", "none"])
+@pytest.mark.parametrize("planes", ["random", "nan_inf", "menger"])
+@pytest.mark.parametrize("h, w", [(1, 1), (3, 5), (187, 333)])
+def test_still_epilogue_kernel_matches_plain(cuda, h, w, planes, valid):
+    """The still epilogue kernel, by value and by row, with and without
+    the linear and without the albedo (the blend alone), against its
+    plain version: float32 bit-equal, u8 equal."""
+    if planes == "menger":
+        if h < 187:
+            pytest.skip("menger frames at the ragged size only")
+        g = _menger_gbuf(MENGER, cuda, w, h)
+        blend = torch.full((h, w), 0.3, device=cuda)
+        # the history: the same surface, another colour
+        ins = (g["color"], g["normal"], g["depth"], g["color"] * 0.5, blend,
+               g["depth"])
+        albedo = g["albedo"]
+    else:
+        ins, albedo = _epilogue_planes(h, w, cuda, specials=planes != "random")
+    row = _epilogue_row(w, h, valid)
+    want = epilogue.still_epilogue_plain(*ins, albedo, row, True)
+    alone = epilogue.still_epilogue_plain(*ins, None, row)
+    before = epilogue.still_epilogue_cuda.launches
+    for params in (row, _device_row(row, cuda)):
+        for keep in (False, True):
+            got = epilogue.still_epilogue_cuda(*ins, albedo, params, keep)
+            assert (got[2] is None) == (not keep)
+            for a, b in zip(got, want):
+                assert a is None or _bits_equal(a, b)
+        got = epilogue.still_epilogue_cuda(*ins, None, params)
+        assert got[2:] == (None, None)
+        assert _bits_equal(got[0], alone[0]) and _bits_equal(got[1], alone[1])
+    torch.cuda.synchronize()
+    assert epilogue.still_epilogue_cuda.launches == before + 6
+    if valid and planes != "nan_inf" and h > 1:
+        kept = (alone[0] != ins[0]).any(0).float().mean()
+        assert 0 < kept < 1, "degenerate comparison: one validity branch"
+
+
+@pytest.mark.parametrize("albedo", [True, False], ids=["modulated", "plain"])
+@pytest.mark.parametrize("specials", [False, True], ids=["random", "nan_inf"])
+@pytest.mark.parametrize("h, w, crop", [(1, 1, 0), (3, 5, 0), (187, 333, 0),
+                                        (190, 338, 3)])
+def test_encode_kernel_matches_plain(cuda, h, w, crop, specials, albedo):
+    """The encode kernel (cropped, modulated or not, by value and by row,
+    with and without the linear) against its plain version."""
+    ins, alb = _epilogue_planes(h, w, cuda, seed=1, specials=specials)
+    lin = ins[0]
+    args = (lin, h - crop, w - crop, alb) if albedo else (lin, h - crop,
+                                                          w - crop)
+    row = _epilogue_row(w - crop, h - crop, factor=0.6)
+    want = epilogue.encode_plain(*args, row if albedo else None, True)
+    for params in ((row, _device_row(row, cuda)) if albedo else (None,)):
+        for keep in (False, True):
+            image, out = epilogue.encode_cuda(*args, params, keep)
+            assert image.shape == (h - crop, w - crop, 3)
+            assert torch.equal(image, want[0])
+            if albedo and not keep:
+                assert out is None
+            else:
+                assert _bits_equal(out, want[1])
+    torch.cuda.synchronize()
+
+
+def test_encode_kernel_on_every_float_in_the_unit_interval(cuda):
+    """Every float32 in [0, 1] (the clamp sends every other value to 0, 1
+    or NaN) and the specials: the kernel's u8 equals the plain
+    version's, i.e. its powf rounds as torch's pow kernel."""
+    top = int(np.float32(1.0).view(np.int32))
+    chunk = 3 * 2048 * 4096
+    for start in range(0, top + 1, chunk):
+        bits = torch.arange(start, start + chunk, dtype=torch.int32,
+                            device=cuda).clamp_max_(top)
+        lin = bits.view(torch.float32).view(3, 2048, 4096)
+        got, _ = epilogue.encode_cuda(lin, 2048, 4096)
+        want, _ = epilogue.encode_plain(lin, 2048, 4096)
+        assert torch.equal(got, want), start
+    special = torch.tensor(
+        [np.nan, np.inf, -np.inf, -0.0, -1e-30, -5.0, 1.0000001, 3e38],
+        dtype=torch.float32, device=cuda).repeat(3, 1)[:, None].contiguous()
+    assert torch.equal(epilogue.encode_cuda(special, 1, 8)[0],
+                       epilogue.encode_plain(special, 1, 8)[0])
+
+
+def test_epilogue_kernels_write_the_device_slot(cuda):
+    """Given ``dest = (frames, slot)`` both kernels write frames[slot]
+    and nothing else; a slot outside the frames writes nothing."""
+    h, w = 37, 53
+    ins, albedo = _epilogue_planes(h, w, cuda, seed=2)
+    row = _epilogue_row(w, h)
+    want = epilogue.still_epilogue_plain(*ins, albedo, row)[3]
+    frames = torch.zeros((3, h, w, 3), dtype=torch.uint8, device=cuda)
+    slot = torch.tensor([1], device=cuda)
+    got = epilogue.still_epilogue_cuda(*ins, albedo, row, dest=(frames, slot))
+    assert got[3] is None
+    assert torch.equal(frames[1], want) and not frames[0].any()
+    assert not frames[2].any()
+    slot.fill_(2)
+    image, _ = epilogue.encode_cuda(ins[0], h, w, albedo, row,
+                                    dest=(frames, slot))
+    assert image is None and torch.equal(
+        frames[2], epilogue.encode_plain(ins[0], h, w, albedo, row)[0])
+    frames.zero_()
+    slot.fill_(3)
+    epilogue.encode_cuda(ins[0], h, w, dest=(frames, slot))
+    epilogue.still_epilogue_cuda(*ins, albedo, row, dest=(frames, slot))
+    torch.cuda.synchronize()
+    assert not frames.any()
+    with pytest.raises(ValueError, match="frames must be"):
+        epilogue.encode_cuda(ins[0], h, w, dest=(frames[:, :-1], slot))
+    with pytest.raises(ValueError, match="slot must be"):
+        epilogue.encode_cuda(ins[0], h, w, dest=(frames, slot.int()))
+
+
 def _sequence_paths(scene):
     orbit = camera_paths.orbit(scene, distance=0.6)
     return {
@@ -423,7 +583,8 @@ def test_graph_replayed_sequence_equals_the_loop(cuda, path, radius):
               denoise_radius=radius, lean=True)
     loop, graph, eager = Renderer(**kw), Renderer(**kw), Renderer(**kw)
     counters = (trace.render_sample_cuda,
-                temporal.temporal_blend_reproject_cuda, denoise.denoise_cuda)
+                temporal.temporal_blend_reproject_cuda, denoise.denoise_cuda,
+                epilogue.still_epilogue_cuda, epilogue.encode_cuda)
 
     def counted(fn):
         before = [c.launches for c in counters]
@@ -449,8 +610,14 @@ def test_graph_replayed_sequence_equals_the_loop(cuda, path, radius):
             assert (r.frame_number, r.still_sample) == (
                 loop.frame_number, loop.still_sample)
         assert n_eager == n_loop
-        # the first sequence also ran one eager frame before each capture
-        warm = [len(kinds), int(True in kinds), len(kinds) * bool(radius)]
+        # the first sequence also ran one eager frame before each capture:
+        # trace, temporal or still epilogue, denoise at r >= 1, encode
+        # unless a still frame at r = 0 encoded in its epilogue
+        warm = [0] * 5
+        for moving in kinds:
+            for i, n in enumerate((1, moving, bool(radius), not moving,
+                                   moving or bool(radius))):
+                warm[i] += int(n)
         assert n_graph == [a + b for a, b in zip(n_loop, warm)]
     follow = camera_paths.orbit(scene, distance=0.6)(0.5)
     assert torch.equal(graph.render(follow)["image"],
@@ -504,10 +671,10 @@ def test_graphs_are_dropped_with_what_they_froze(cuda):
 
 
 def test_renderer_on_cuda_runs_every_kernel_on_a_moving_path(cuda):
-    """Four frames along an orbit at denoise radius 2: the trace and
-    denoise kernels launch every frame, the temporal kernel on the three
-    frames that move with live history; images agree with the CPU
-    renderer's."""
+    """Four frames along an orbit at denoise radius 2: the trace, denoise
+    and encode kernels launch every frame, the temporal kernel on the
+    three frames that move with live history, the still epilogue on the
+    first; images agree with the CPU renderer's."""
     scene = load_scene("chr_knight")
     path = camera_paths.orbit(scene, distance=0.6)
     gpu = Renderer(scene=scene, height=48, width=64, device="cuda",
@@ -515,12 +682,15 @@ def test_renderer_on_cuda_runs_every_kernel_on_a_moving_path(cuda):
     cpu = Renderer(scene=scene, height=48, width=64, device="cpu",
                    denoise_radius=2)
     counters = (trace.render_sample_cuda, temporal.temporal_blend_reproject_cuda,
-                denoise.denoise_cuda)
+                denoise.denoise_cuda, epilogue.still_epilogue_cuda,
+                epilogue.encode_cuda)
     before = [c.launches for c in counters]
     for i in range(4):
         out_gpu = gpu.render(path(i / 30.0))
         out_cpu = cpu.render(path(i / 30.0))
-    assert [c.launches - b for c, b in zip(counters, before)] == [4, 3, 4]
+    # the first frame blends in the still epilogue; every frame encodes
+    assert [c.launches - b for c, b in zip(counters, before)] == [
+        4, 3, 4, 1, 4]
     np.testing.assert_array_equal(out_gpu["node"].cpu().numpy(),
                                   out_cpu["node"].numpy())
     diff = np.abs(out_gpu["image"].cpu().numpy().astype(int)

@@ -46,8 +46,8 @@ from ..engine.params import (
 from ..engine.pipeline import Renderer
 from ..engine.scene import SceneTables, available_scenes, load_scene
 from ..ops import denoise as denoise_op
+from ..ops import epilogue as epilogue_op
 from ..ops import temporal as temporal_op
-from ..ops import tonemap
 from ..ops import trace as trace_op
 from ..ops.noise import blue_noise_buffer, noise_planes, white_noise_buffer
 from ..oracle import renderer as oracle
@@ -214,7 +214,8 @@ def config4_monu9_full(device, quick=False):
 
     # each stage alone on the last frame's G-buffer: the reprojecting
     # blend around the resampler of this device, the r=2 stencil, the u8
-    # encode.  temporal_reproject is the channels-last blend (plain torch
+    # encode (the frame's: the epilogue's encode kernel on the card).
+    # temporal_reproject is the channels-last blend (plain torch
     # ops around the resample kernel), kept for the reference harness's
     # key; the renderer's frames never run it, their temporal cost is
     # the temporal kernel's (csrc/temporal.cu).
@@ -229,7 +230,7 @@ def config4_monu9_full(device, quick=False):
     dparams = pack_denoise_params(cam, DenoiseParams())
     t_denoise = _stage_ms(lambda: denoise_op.denoise(
         planar[0], planar[1], gD, planar[2], out["node"], dparams, 2), device)
-    t_tone = _stage_ms(lambda: tonemap.to_u8(gC), device)
+    t_tone = _stage_ms(lambda: epilogue_op.encode(planar[0], h, w), device)
 
     rays = _exact_rays(scene, cams[-1], h, w, device)
     yield dict(

@@ -1,17 +1,25 @@
 """The frame function and the host-side frame loop.
 
 Counterpart of :mod:`voxtracer.engine.pipeline` on one device.  Each
-frame runs four stages, planar (3, H, W) throughout:
+frame runs these stages, planar (3, H, W) throughout:
 
 1. trace: :func:`voxtracer_torch.ops.trace.render_sample` — the CUDA
    kernel on the card, its plain torch version on the CPU;
 2. temporal: with live history and a moved camera, the reprojecting
    blend :func:`voxtracer_torch.ops.temporal.temporal_blend_reproject`
-   (CUDA kernel / plain version); otherwise the elementwise still blend;
-3. denoise: :func:`voxtracer_torch.ops.denoise.denoise` — the
-   cross-bilateral stencil for radius >= 1 (CUDA kernel / plain
-   version), then the albedo modulate;
-4. the u8 sRGB encode.
+   (CUDA kernel / plain version); otherwise the still blend, the first
+   part of :func:`voxtracer_torch.ops.epilogue.still_epilogue`;
+3. denoise: for radius >= 1 the cross-bilateral stencil and the albedo
+   modulate, :func:`voxtracer_torch.ops.denoise.denoise` (CUDA kernel /
+   plain version); radius 0 is the modulate alone, inside the epilogue;
+4. the u8 sRGB encode: :func:`voxtracer_torch.ops.epilogue.encode`, or,
+   on a still frame at radius 0, the rest of the still epilogue, which
+   blends, modulates and encodes in one pass (as XLA fuses the tail of
+   the reference's frame).
+
+On the card a frame is 2 launches (still, r = 0: trace + still
+epilogue), 3 (moving, r = 0: + temporal + encode) or 4 (r >= 1: trace,
+temporal kernel or the still epilogue's blend alone, denoise, encode).
 
 The first frame after construction, ``reset_accumulation`` or a resize
 has no live history.  The reference sends it through the moving
@@ -46,9 +54,9 @@ import numpy as np
 import torch
 
 from ..ops import denoise as denoise_op
+from ..ops import epilogue as epilogue_op
 from ..ops import reproject as reproject_op
 from ..ops import temporal as temporal_op
-from ..ops import tonemap
 from ..ops import trace as trace_op
 from ..ops.noise import blue_noise_buffer
 from .camera import Camera
@@ -134,38 +142,42 @@ def frame_stages(
     trace: Callable,
     temporal: Callable,
     denoise: Callable,
+    still_epilogue: Callable,
+    encode: Callable,
+    keep_linear: bool = False,
+    dest=None,  # (frames, slot): write the image at frames[slot]
 ):
-    """Trace, temporal blend and denoise of the frame whose parameters
-    ``row`` holds.  A numpy row gives the stages its slices by value; a
-    :class:`DeviceRow` makes every stage read the row on the device.
-    Returns ``(gbuf, blended, next_blend, out)``."""
+    """Trace, temporal blend, denoise and u8 encode of the frame whose
+    parameters ``row`` holds.  A numpy row gives the stages its slices
+    by value; a :class:`DeviceRow` makes every stage read the row on the
+    device.  Returns ``(gbuf, blended, next_blend, out, image)``: ``out``
+    is the linear frame the image encodes (None at radius 0 unless
+    ``keep_linear``), ``image`` None where ``dest`` took it."""
     if isinstance(row, DeviceRow):
         trace_p = temporal_p = denoise_p = row
         frame = None  # in the device row
-        still_row = row.row
     else:
         trace_p = row[ROW_TRACE:ROW_TRACE + TRACE_PARAMS_LEN]
         temporal_p = row[ROW_TEMPORAL:ROW_TEMPORAL + TEMPORAL_PARAMS_LEN]
         denoise_p = row[ROW_DENOISE:ROW_DENOISE + DENOISE_PARAMS_LEN]
         frame = int(row[ROW_FRAME:ROW_FRAME + 1].view(np.int32)[0])
-        still_row = row
     gbuf = trace(tables, trace_p, noise, frame, height, width)
     planes = (gbuf["color"], gbuf["normal"], gbuf["depth"], *history)
-    if reproject:
-        blended, next_blend = temporal(*planes, temporal_p)
+    # radius 0: the modulate rides the encode (or the still epilogue)
+    albedo = None if radius else gbuf["albedo"]
+    if not reproject:
+        blended, next_blend, out, image = still_epilogue(
+            *planes, albedo, row, keep_linear, dest)
+        if not radius:
+            return gbuf, blended, next_blend, out, image
     else:
-        blended, next_blend = temporal_op.temporal_blend_still_row(
-            *planes, still_row)
-    out = denoise(
-        blended,
-        gbuf["normal"],
-        gbuf["depth"],
-        gbuf["albedo"],
-        gbuf["node"],
-        denoise_p,
-        radius,
-    )
-    return gbuf, blended, next_blend, out
+        blended, next_blend = temporal(*planes, temporal_p)
+    out = blended
+    if radius:
+        out = denoise(blended, gbuf["normal"], gbuf["depth"], gbuf["albedo"],
+                      gbuf["node"], denoise_p, radius)
+    image, out = encode(out, height, width, albedo, row, keep_linear, dest)
+    return gbuf, blended, next_blend, out, image
 
 
 def render_frame(
@@ -184,18 +196,22 @@ def render_frame(
     trace: Callable = trace_op.render_sample,
     temporal: Callable = temporal_op.temporal_blend_reproject,
     denoise: Callable = denoise_op.denoise,
+    still_epilogue: Callable = epilogue_op.still_epilogue,
+    encode: Callable = epilogue_op.encode,
 ):
     """One frame: ``(state, outputs)``.  ``trace``, ``temporal`` (the
-    reprojecting blend) and ``denoise`` are the device stages; only a
-    comparison of the kernels with their plain versions replaces them."""
+    reprojecting blend), ``denoise``, ``still_epilogue`` and ``encode``
+    are the device stages; only a comparison of the kernels with their
+    plain versions replaces them."""
     row = pack_frame_rows(
         [cam], state["old_cam"], state["history_valid"], frame_number,
         render_params, temporal_params, denoise_params,
     )[0]
-    gbuf, blended, next_blend, out = frame_stages(
+    gbuf, blended, next_blend, out, image = frame_stages(
         tuple(state[k] for k in STATE_PLANES), tables, noise, row,
         state["history_valid"] and camera_moved(state, cam),
-        height, width, radius, trace, temporal, denoise,
+        height, width, radius, trace, temporal, denoise, still_epilogue,
+        encode, keep_linear=not lean,
     )
     new_state = {
         "accum_color": blended,
@@ -205,7 +221,7 @@ def render_frame(
         "history_valid": True,
     }
     outputs = {
-        "image": tonemap.to_u8_planar_cropped(out, height, width),
+        "image": image,
         "depth": gbuf["depth"],
         "rays": gbuf["rays"],
     }
@@ -233,6 +249,8 @@ def counted_kernels():
         temporal_op.temporal_blend_reproject_cuda,
         denoise_op.denoise_cuda,
         reproject_op.resample_cuda,
+        epilogue_op.still_epilogue_cuda,
+        epilogue_op.encode_cuda,
     )
 
 
@@ -244,11 +262,12 @@ class SequenceRunner:
     object owns: the path's rows and a device cursor into them, the
     carried state (the blend of a frame is copied into it at the frame's
     end: the temporal kernel gathers neighbours of the history and
-    cannot blend in place), and the u8 frames, written at a device slot
-    that advances by a device step (1 for a sequence, 0 for a burst,
-    which so holds one image whatever its length).  The last nodes of
-    the graph advance cursor and slot, so one graph per kind of frame
-    (still blend, reprojecting blend) serves any segment length.
+    cannot blend in place), and the u8 frames, which the epilogue
+    kernels write at a device slot that advances by a device step (1 for
+    a sequence, 0 for a burst, which so holds one image whatever its
+    length).  The last nodes of the graph advance cursor and slot, so
+    one graph per kind of frame (still blend, reprojecting blend) serves
+    any segment length.
 
     The graphs are captured after one eager frame has built the kernels
     and set their attributes.  They share one memory pool: each frame's
@@ -259,12 +278,11 @@ class SequenceRunner:
     stream renders at a time.
     """
 
-    def __init__(self, key, tables, noise, height, width, radius, trace,
-                 temporal, denoise):
+    def __init__(self, key, tables, noise, height, width, radius, stages):
         self.key = key
         self.tables, self.noise = tables, noise
         self.height, self.width, self.radius = height, width, radius
-        self.trace, self.temporal, self.denoise = trace, temporal, denoise
+        self.stages = stages  # trace, temporal, denoise, still, encode
         dev = tables.device
         self.state = {k: v for k, v in init_state(height, width, dev).items()
                       if k in STATE_PLANES}
@@ -307,13 +325,11 @@ class SequenceRunner:
         every operation on the device, none waiting for the host."""
         row = DeviceRow(self.rows.index_select(0, self.cursor)[0],
                         self.host_row)
-        gbuf, blended, next_blend, out = frame_stages(
+        gbuf, blended, next_blend, _, _ = frame_stages(
             tuple(self.state[k] for k in STATE_PLANES), self.tables,
             self.noise, row, reproject, self.height, self.width,
-            self.radius, self.trace, self.temporal, self.denoise,
+            self.radius, *self.stages, dest=(self.frames, self.slot),
         )
-        image = tonemap.to_u8_planar_cropped(out, self.height, self.width)
-        self.frames.index_copy_(0, self.slot, image[None])
         self.state["accum_color"].copy_(blended)
         self.state["accum_blend"].copy_(next_blend)
         self.state["old_depth"].copy_(gbuf["depth"])
@@ -368,11 +384,11 @@ class Renderer:
     ``device`` and advances frames (the reference's frame and
     still-sample counters, camera-motion detection, scene swap, resize).
     ``device="cuda"`` without a usable GPU raises.  ``trace``,
-    ``temporal`` and ``denoise`` are the frame's device stages (see
-    :func:`render_frame`).  ``render`` is the realtime frame;
-    ``render_sequence`` and ``render_burst`` render a camera path known
-    up front with one host call, and leave state and counters as that
-    many ``render`` calls would."""
+    ``temporal``, ``denoise``, ``still_epilogue`` and ``encode`` are the
+    frame's device stages (see :func:`render_frame`).  ``render`` is the
+    realtime frame; ``render_sequence`` and ``render_burst`` render a
+    camera path known up front with one host call, and leave state and
+    counters as that many ``render`` calls would."""
 
     scene: GridScene
     height: int
@@ -387,6 +403,8 @@ class Renderer:
     trace: Callable = trace_op.render_sample
     temporal: Callable = temporal_op.temporal_blend_reproject
     denoise: Callable = denoise_op.denoise
+    still_epilogue: Callable = epilogue_op.still_epilogue
+    encode: Callable = epilogue_op.encode
 
     def __post_init__(self):
         self.device = torch.device(self.device)
@@ -450,6 +468,8 @@ class Renderer:
             trace=self.trace,
             temporal=self.temporal,
             denoise=self.denoise,
+            still_epilogue=self.still_epilogue,
+            encode=self.encode,
         )
         self.frame_number += 1
         self.still_sample = 1 if moved else self.still_sample + 1
@@ -502,13 +522,17 @@ class Renderer:
         self.state["old_cam"] = np.array(last_cam, np.float32)
         self.state["history_valid"] = True
 
+    def _stages(self):
+        return (self.trace, self.temporal, self.denoise, self.still_epilogue,
+                self.encode)
+
     def _sequence_runner(self) -> SequenceRunner:
         """The runner of this configuration; a new one, without graphs,
         once anything that a capture freezes has changed."""
         p = self.denoise_params
         key = (
             self.height, self.width, self.denoise_radius, id(self.tables),
-            id(self.noise), self.trace, self.temporal, self.denoise,
+            id(self.noise), *self._stages(),
             # by value in the denoise kernel's launch
             (p.sigma_distance, p.sigma_range, p.albedo_factor)
             if self.denoise_radius else None,
@@ -516,7 +540,7 @@ class Renderer:
         if self._runner is None or self._runner.key != key:
             self._runner = SequenceRunner(
                 key, self.tables, self.noise, self.height, self.width,
-                self.denoise_radius, self.trace, self.temporal, self.denoise,
+                self.denoise_radius, self._stages(),
             )
         return self._runner
 
@@ -543,14 +567,12 @@ class Renderer:
             history = tuple(self.state[k] for k in STATE_PLANES)
             images = []
             for row, reproject in zip(rows, flags):
-                gbuf, blended, next_blend, out = frame_stages(
+                gbuf, blended, next_blend, _, image = frame_stages(
                     history, self.tables, self.noise, row, reproject,
-                    self.height, self.width, self.denoise_radius, self.trace,
-                    self.temporal, self.denoise,
+                    self.height, self.width, self.denoise_radius,
+                    *self._stages(),
                 )
                 history = (blended, next_blend, gbuf["depth"])
-                image = tonemap.to_u8_planar_cropped(
-                    out, self.height, self.width)
                 if stack:
                     images.append(image)
                 else:

@@ -41,10 +41,11 @@ WATCHED_MODULES = (
     "voxtracer_torch.ops.denoise",
     "voxtracer_torch.ops.reproject",
     "voxtracer_torch.ops.tonemap",
+    "voxtracer_torch.ops.epilogue",
 )
 
 # the Renderer's stage callables, bound when it is built
-STAGES = ("trace", "temporal", "denoise")
+STAGES = ("trace", "temporal", "denoise", "still_epilogue", "encode")
 
 
 def renderer_hook(renderer) -> Callable[[], None]:

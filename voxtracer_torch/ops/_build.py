@@ -144,7 +144,8 @@ def load() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     # Each frame kernel takes its parameters by value (params, a host
     # pointer) or, where that is null (for the denoise: besides it), from
-    # its slice of a frame row on the device (row).
+    # its slice of a frame row on the device (row).  Null optional
+    # pointers (albedo, linear, slot) leave their part out.
     # vt_trace_launch(params, row, geometry, packed, meta, brick, palette,
     #   noise, n_slices, frame, height, width, color, normal, albedo,
     #   depth, node, counters, stream) -> cudaError_t
@@ -171,4 +172,14 @@ def load() -> ctypes.CDLL:
     #   stream) -> cudaError_t
     lib.vt_stall_launch.argtypes = [p] * 2 + [i] * 5 + [p] * 3
     lib.vt_stall_launch.restype = ctypes.c_int
+    # vt_still_epilogue_launch(params, row, color, normal, depth,
+    #   old_color, old_blend, old_depth, albedo, height, width, blended,
+    #   next_blend, linear, image, slot, n_images, stream) -> cudaError_t
+    lib.vt_still_epilogue_launch.argtypes = [p] * 9 + [i] * 2 + [p] * 5 + [
+        i, p]
+    lib.vt_still_epilogue_launch.restype = ctypes.c_int
+    # vt_encode_launch(params, row, src, albedo, in_h, in_w, height, width,
+    #   linear, image, slot, n_images, stream) -> cudaError_t
+    lib.vt_encode_launch.argtypes = [p] * 4 + [i] * 4 + [p] * 3 + [i, p]
+    lib.vt_encode_launch.restype = ctypes.c_int
     return lib
