@@ -62,7 +62,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
     mode and h in {1, 2, 4}, and for pre 512 and mid 256 (the matrix's
     longest chains), at 64 trips: equal; then the CLI's default matrix
     at its default trips (cycles per trip, stall cycles per handoff),
-    and ser:1 against its plain version at those trips: equal.
+    and ser:1 against its plain version at those trips: equal; ser:1's
+    bound over the whole card's lanes and over one SM's (the kernel is
+    one block on one SM).
 12. the offline export path, at full size: config 2 through
     ``Renderer.render_burst``, configs 3 and 4 through
     ``Renderer.render_sequence``.  Two renderers from equal state, one
@@ -71,10 +73,14 @@ Phases (each prints one line; any failure raises and exits non-zero):
     equal, the launch counters (zeroed before, read after) equal to the
     loop's, replays included.  Then ms/frame of the sequence against the
     per-frame loop, in turns (loop, sequence, sequence, loop), 3 warm
-    frames, bursts of 12, CUDA events.  And a mixed path (still, still,
-    pan, pan, still, still, pan) at 320x180 for the segment split.  The
-    replayed graphs write each frame's image through the epilogue
-    kernels' device slot.
+    frames, bursts of 12, CUDA events; the device activities and copies
+    a replayed frame (``app/profile.py`` ``frame_activities``: those
+    between the first and the last frames' trace launches of one profiled
+    sequence of 12): a still frame at r = 0 copies only the rows
+    of its two row-reading launches, its epilogue blending straight into
+    the carried state.  And a mixed path (still, still, pan, pan, still,
+    still, pan) at 320x180 for the segment split.  The replayed graphs
+    write each frame's image through the epilogue kernels' device slot.
 13. ``voxtracer_torch.app.cli.main`` on the card: menger 1280x720,
     ``--batch 8 --frames 20 --video-dir --save-snapshot``, then
     ``--resume --batch 4 --frames 4``: 20 + 4 PNGs, and the resumed
@@ -115,15 +121,24 @@ Phases (each prints one line; any failure raises and exits non-zero):
 19. (after phase 6) the frame epilogue: the still-epilogue and encode
     kernels (csrc/epilogue.cu) against their plain versions, by value
     and by row, with and without the modulated linear, the still
-    epilogue also without albedo (the blend alone): menger 1280x720 at
-    the bench camera with history valid and invalid, menger 333x187,
-    333x187 planes with NaN, +-inf, negative and > 1 values, monu9
-    1920x1080 (phase 5's dolly planes; the encode of its temporal output
-    at r = 0 and of its denoised frame at r = 2), castle 3840x2160, a
-    cropped encode, and every float32 in [0, 1] through the encode:
-    float32 outputs bit-equal, u8 values that differ at all (the bar:
-    none beyond 1); then kernel, plain and bound times and the share at
-    720p, 1080p and 4K.
+    epilogue also without albedo (the blend alone) and in place (into a
+    copy of the history), on the main path's planes
+    (``renderbench.epilogue_cases``: menger 1280x720 at the bench camera,
+    monu9 1920x1080 at a dolly pose and castle 3840x2160, history valid
+    and invalid; monu9's dolly planes with both cameras; the encode of
+    monu9's dolly temporal output at r = 0 and of its denoised frame at
+    r = 2, and of the 720p and 4K still blends), menger 333x187, 333x187
+    planes with NaN, +-inf, negative and > 1 values, a cropped encode,
+    and every float32 in [0, 1] through the encode: float32 outputs
+    bit-equal, u8 values that differ at all (the bar: none beyond 1);
+    then, at 720p, 1080p and 4K (``renderbench.time_epilogue_case``),
+    each kernel's time on the device alone (20 launches captured into a
+    CUDA graph and replayed back to back), in the frame's cache state
+    (the L2 evicted and the planes the kernel before it writes rewritten
+    before each launch; the profiled kernel's duration), over 20 eager
+    calls of the wrapper (the earlier yardstick), the plain version's,
+    the bound on the run's data and the fixed one, their shares, and
+    the share of miss pixels.
 
 Then (phase 15) checks that no module of the JAX package
 (``voxtracer``), JAX or Triton was imported, prints the per-kernel JSON
@@ -137,7 +152,8 @@ the device line last.
 
 Bounds (``bound_ms``): the larger of the bytes the function must move
 (each input read once, each output written once; for the epilogue
-kernels ``epilogue_bytes`` and ``encode_bytes``) over 3.35 TB/s and
+kernels ``renderbench.still_bytes``, counted on the run's planes, and
+``encode_bytes``) over 3.35 TB/s and
 its operations over the card's peak for their type: float32 operations
 over 67 TFLOP/s, or, for the integer and control work of the trace and
 stall kernels, lane operations over the issue rate, 33.5 T a second
@@ -167,9 +183,16 @@ sys.path.insert(0, HERE)
 
 from voxtracer_torch.app import denoisebench, tracebench  # noqa: E402
 from voxtracer_torch.app.denoisebench import FP32_FLOPS_PER_S  # noqa: E402
+from voxtracer_torch.app.renderbench import (  # noqa: E402
+    encode_case,
+    epilogue_cases,
+    still_case,
+    time_epilogue_case,
+)
 from voxtracer_torch.app.tracebench import LANE_OPS_PER_S, bound  # noqa: E402
 
 WIDTH, HEIGHT = 1280, 720
+N_SMS = 132  # H100 SXM: LANE_OPS_PER_S is 132 SMs' issue rate
 WARMUP, BURSTS, FRAMES = 3, 3, 12
 BENCH_POS, BENCH_DIR = tracebench.BENCH_POS, tracebench.BENCH_DIR
 
@@ -177,11 +200,6 @@ BENCH_POS, BENCH_DIR = tracebench.BENCH_POS, tracebench.BENCH_DIR
 # pixel; of the resample kernel per pixel and plane.
 TEMPORAL_FLOPS_PER_PX = 200
 RESAMPLE_FLOPS_PER_PX_PLANE = 9
-# float32 operations of the still epilogue per pixel (the blend ~95, the
-# modulate 9, the encode ~25 a channel with powf's ~20) and of the
-# encode per pixel
-EPILOGUE_FLOPS_PER_PX = 180
-ENCODE_FLOPS_PER_PX = 80
 
 # the kernels that render_sequence / render_burst replay
 SEQUENCE_KERNELS = ("trace", "temporal", "denoise", "epilogue", "encode")
@@ -681,27 +699,10 @@ def u8_max_diff(a, b):
     return int((a.int() - b.int()).abs().max()) if a.numel() else 0
 
 
-def epilogue_bytes(h, w, albedo=True, linear=False):
-    """What the still epilogue must move: 12 float32 planes read (colour,
-    normal, old colour, depth, old blend, old depth), 4 written (blend,
-    next blend); with albedo 3 more read, the u8 image written and, with
-    the linear, 3 more written."""
-    nbytes = 4 * 12 + 4 * 4
-    if albedo:
-        nbytes += 4 * 3 + 3 + (4 * 3 if linear else 0)
-    return nbytes * h * w
-
-
-def encode_bytes(h, w, albedo, linear=False):
-    """What the encode must move: 3 float32 planes read (3 more with the
-    albedo), the u8 image written (and the modulated linear)."""
-    return (4 * 3 + (4 * 3 if albedo else 0) + 3
-            + (4 * 3 if albedo and linear else 0)) * h * w
-
-
 def compare_still(planes, albedo, row):
     """The still epilogue kernel, by value and by row, with and without
-    the linear, against its plain version (the host row).  Returns the
+    the linear, out of place and in place (into a copy of the history),
+    against its plain version (the host row, out of place).  Returns the
     float32 values and u8 values that differ, and the u8 max diff."""
     from voxtracer_torch.engine.params import DeviceRow
     from voxtracer_torch.ops import epilogue
@@ -710,9 +711,16 @@ def compare_still(planes, albedo, row):
     want = epilogue.still_epilogue_plain(*planes, albedo, row, True)
     f32 = u8 = u8_max = 0
     for params in (row, dev_row):
-        for keep in (False, True):
-            got = epilogue.still_epilogue_cuda(*planes, albedo, params, keep)
+        for keep, in_place in ((False, False), (True, False), (False, True),
+                               (True, True)):
+            history = [t.clone() for t in planes[3:]]
+            got = epilogue.still_epilogue_cuda(
+                *planes[:3], *(history if in_place else planes[3:]), albedo,
+                params, keep, in_place=in_place)
             torch.cuda.synchronize()
+            if in_place:  # the history holds blend, next blend, depth
+                assert got[0] is history[0] and got[1] is history[1]
+                f32 += n_differ(history[2], planes[2])
             for i, (a, b) in enumerate(zip(got, want)):
                 if a is None:
                     assert i == 2 and not keep or albedo is None, (i, keep)
@@ -771,27 +779,30 @@ def nan_planes(h, w, rng):
     return planes, plane(3, -0.2, 1.5)
 
 
-def phase_epilogue(smi, dolly, poses):
+def phase_epilogue(smi):
     """Phase 19: the still-epilogue and encode kernels against their
-    plain versions on the card (menger 1280x720 at the bench camera with
-    history valid and invalid, a ragged 333x187, planes with NaN, +-inf,
-    negative and > 1 values, castle 3840x2160, monu9 1920x1080's dolly
-    temporal output at r = 0 and its denoised frame at r = 2, and every
-    float32 in [0, 1] through the encode), by value and by row, with and
-    without the linear: values that differ; then times and bounds.
-    Returns the epilogue's entry (times at 1280x720) and the largest u8
-    difference seen."""
-    from voxtracer_torch.app import camera_paths
+    plain versions on the card, by value and by row, with and without
+    the linear, out of place and in place, on the main path's planes
+    (``renderbench.epilogue_cases``: menger 1280x720 at the bench camera,
+    monu9 1920x1080 and castle 3840x2160 with history valid and invalid,
+    monu9's dolly planes with both cameras, the encode of monu9's dolly
+    temporal output at r = 0 and of its denoised frame at r = 2, and of
+    the 720p and 4K still blends), a ragged 333x187, planes with NaN,
+    +-inf, negative and > 1 values, a cropped encode, and every float32
+    in [0, 1] through the encode: values that differ; then each timed
+    case's times (``renderbench.time_epilogue_case``), plain time, bound
+    and miss share.  Returns the epilogue's entry (config 2's case:
+    menger 1280x720, history valid), the encode's cases and the largest
+    u8 difference seen."""
     from voxtracer_torch.engine.camera import Camera
     from voxtracer_torch.engine.params import (
         DenoiseParams,
         RenderParams,
         TemporalParams,
-        pack_denoise_params,
         pack_frame_rows,
     )
     from voxtracer_torch.engine.scene import SceneTables, load_scene
-    from voxtracer_torch.ops import denoise, epilogue
+    from voxtracer_torch.ops import epilogue
     from voxtracer_torch.ops.noise import blue_noise_buffer
 
     noise = torch.from_numpy(blue_noise_buffer()).cuda()
@@ -802,124 +813,78 @@ def phase_epilogue(smi, dolly, poses):
         return pack_frame_rows([cam_rows], old_rows, valid, 2,
                                RenderParams(), tp, dp)[0]
 
-    def still_case(scene, cam, w, h):
-        """A still frame's planes: frame 2's trace over frame 1's as the
-        history, with random old blends."""
-        tables = SceneTables(scene, "cuda")
-        old = trace_cuda(tables, noise, cam, w, h, frame=1)
-        new = trace_cuda(tables, noise, cam, w, h, frame=2)
-        blend = torch.from_numpy(
-            rng.uniform(0.02, 1.0, (h, w)).astype(np.float32)).cuda()
-        return ((new["color"], new["normal"], new["depth"], old["color"],
-                 blend, old["depth"]), new["albedo"])
-
+    cases = epilogue_cases()
+    # untimed: menger's ragged 333x187 (frame 2 over frame 1, random old
+    # blends) and planes with NaN, +-inf, negative and > 1 values
     menger = load_scene("menger")
     bench_cam = Camera(position=np.array(BENCH_POS),
                        direction=np.array(BENCH_DIR))
-    castle = load_scene("castle")
-    castle_cam = camera_paths.static(castle)(0.0)
-    cases = []  # (label, planes, albedo, row, timed)
-    planes, albedo = still_case(menger, bench_cam, WIDTH, HEIGHT)
-    rows = bench_cam.rows(WIDTH, HEIGHT)
-    for valid in (True, False):
-        cases.append((f"menger {WIDTH}x{HEIGHT} history valid {valid}",
-                      planes, albedo, frame_row(rows, rows, valid), valid))
     cw, ch = 333, 187
-    planes, albedo = still_case(menger, bench_cam, cw, ch)
+    tables = SceneTables(menger, "cuda")
+    old = trace_cuda(tables, noise, bench_cam, cw, ch, frame=1)
+    new = trace_cuda(tables, noise, bench_cam, cw, ch, frame=2)
+    blend = torch.from_numpy(
+        rng.uniform(0.02, 1.0, (ch, cw)).astype(np.float32)).cuda()
     rows = bench_cam.rows(cw, ch)
-    cases.append((f"menger {cw}x{ch}", planes, albedo,
-                   frame_row(rows, rows, True), False))
+    cases.append(still_case(
+        "menger", (new["color"], new["normal"], new["depth"], old["color"],
+                   blend, old["depth"]), new["albedo"],
+        frame_row(rows, rows, True), True, timed=False))
     planes, albedo = nan_planes(ch, cw, rng)
     odd = (TemporalParams(sample_blending=0.3, maximum_blending=0.9,
                           blending_distance_cutoff=0.2),
            DenoiseParams(albedo_factor=0.35))
-    cases.append((f"NaN/inf/negative/>1 planes {cw}x{ch}", planes, albedo,
-                  frame_row(rows, rows, True, *odd), False))
-    # phase 5's dolly frame: its G-buffer, blend and cameras
-    _, g, blended = dolly
-    _, args, cam_rows, old_rows = poses[0]
-    dolly_row = frame_row(cam_rows, old_rows, True)
-    cases.append(("monu9 1920x1080 dolly planes", args[:6], g["albedo"],
-                  dolly_row, True))
-    planes, albedo = still_case(castle, castle_cam, 3840, 2160)
-    rows = castle_cam.rows(3840, 2160)
-    cases.append(("castle 3840x2160", planes, albedo,
-                  frame_row(rows, rows, True), True))
+    cases.append(still_case("NaN/inf/negative/>1 planes", planes, albedo,
+                            frame_row(rows, rows, True, *odd), True,
+                            timed=False))
+    nan_in, nan_alb = nan_planes(ch + 3, cw + 5, rng)
+    for args in ((nan_in[0], ch, cw, nan_alb, frame_row(rows, rows, True,
+                                                        *odd)),
+                 (nan_in[0], ch, cw)):
+        cases.append({"kernel": "encode", "size": f"{cw}x{ch}",
+                      "case": f"NaN planes {cw + 5}x{ch + 3} cropped"
+                      + (", modulated" if len(args) > 3 else ""),
+                      "history_valid": True, "args": args, "timed": False})
 
     u8_worst = 0
-    report, timed = [], {}
-    for label, planes, albedo, row, time_it in cases:
-        h, w = planes[2].shape
-        f32, u8, u8_max = compare_still(planes, albedo, row)
-        f32_b, _, _ = compare_still(planes, None, row)  # the blend alone
+    timed, encodes = {}, {}
+    for c in cases:
+        label = f"{c['kernel']} {c['case']} {c['size']}"
+        if c["kernel"] == "still epilogue":
+            label += f" history valid {c['history_valid']}"
+            planes, albedo, row = c["args"][:6], c["args"][6], c["args"][7]
+            f32, u8, u8_max = compare_still(planes, albedo, row)
+            f32_b, _, _ = compare_still(planes, None, row)  # the blend alone
+            line = (f"{label}: f32 values differing {f32} (blend alone "
+                    f"{f32_b}), u8 values differing {u8} (max {u8_max})")
+            assert f32 == 0 and f32_b == 0 and u8_max <= 1, (label, f32, u8)
+            plain = epilogue.still_epilogue_plain
+        else:
+            f32, u8, u8_max = compare_encode(c["args"])
+            line = (f"{label}: f32 values differing {f32}, u8 values "
+                    f"differing {u8} (max {u8_max})")
+            assert f32 == 0 and u8_max <= 1, (label, f32, u8)
+            plain = epilogue.encode_plain
         u8_worst = max(u8_worst, u8_max)
-        hit = planes[2] >= 0
-        kept = int(((epilogue.still_epilogue_plain(
-            *planes, None, row)[1] < 0.5) & hit).sum())
-        report.append(f"{label}: f32 values differing {f32} (blend alone "
-                      f"{f32_b}), u8 values differing {u8} (max {u8_max}), "
-                      f"history kept on {kept} px")
-        assert f32 == 0 and f32_b == 0 and u8_max <= 1, (label, f32, u8)
-        if not time_it:
-            continue
-        args_k = (*planes, albedo, row)
-        ms = cuda_time(lambda: epilogue.still_epilogue_cuda(*args_k), 20)
-        ms_lin = cuda_time(
-            lambda: epilogue.still_epilogue_cuda(*args_k, True), 20)
-        ms_blend = cuda_time(
-            lambda: epilogue.still_epilogue_cuda(*planes, None, row), 20)
-        plain = cuda_time(lambda: epilogue.still_epilogue_plain(*args_k), 3)
-        b, by = bound(epilogue_bytes(h, w), EPILOGUE_FLOPS_PER_PX * h * w,
-                      FP32_FLOPS_PER_S)
-        b_lin, _ = bound(epilogue_bytes(h, w, linear=True),
-                         EPILOGUE_FLOPS_PER_PX * h * w, FP32_FLOPS_PER_S)
-        b_blend, _ = bound(epilogue_bytes(h, w, albedo=False),
-                           EPILOGUE_FLOPS_PER_PX * h * w, FP32_FLOPS_PER_S)
-        timed[(w, h)] = {"ms": ms, "plain_ms": plain, "bound_ms": b,
-                         "bound_by": by}
-        report.append(
-            f"  still epilogue {w}x{h}: kernel {ms:.4f} ms (bound {b:.4f}, "
-            f"{by}; share {b / ms:.3f}), with the linear {ms_lin:.4f} "
-            f"(bound {b_lin:.4f}, share {b_lin / ms_lin:.3f}), the blend "
-            f"alone {ms_blend:.4f} (bound {b_blend:.4f}, share "
-            f"{b_blend / ms_blend:.3f}); plain {plain:.3f} ms")
-    for line in report:
+        if c["timed"]:
+            # device-only times (replayed, and in the frame's cache
+            # state) beside the eager calls', the earlier yardstick
+            t = time_epilogue_case(c)
+            t["plain_ms"] = cuda_time(lambda: plain(*c["args"]), 3)
+            t["miss_share"] = c["miss_share"]
+            (timed if c["kernel"] == "still epilogue" else encodes)[
+                label] = t
+            line += (
+                f"; miss share {c['miss_share']:.4f}, "
+                f"{t['bytes_per_px']:.2f} B a pixel: replayed "
+                f"{t['ms']:.4f} ms, in the frame's cache state "
+                f"{t['frame_cache_ms']:.4f}, eager calls "
+                f"{t['eager_ms']:.4f}, plain {t['plain_ms']:.3f}; bound "
+                f"{t['bound_ms']:.4f} ({t['bound_by']}; share "
+                f"{t['share']:.3f} / {t['share_frame_cache']:.3f} / "
+                f"{t['share_eager']:.3f}), fixed bound "
+                f"{t['fixed_bound_ms']:.4f} (share {t['fixed_share']:.3f})")
         say(19, f"{line} [{smi}]")
-
-    # the encode: monu9's dolly blend at r = 0 (with albedo) and its
-    # denoised frame at r = 2; the NaN planes, cropped from a larger
-    # input; every float32 in [0, 1]
-    h, w = g["depth"].shape
-    denoised = denoise.denoise_cuda(
-        blended, g["normal"], g["depth"], g["albedo"], g["node"],
-        pack_denoise_params(cam_rows, DenoiseParams()), 2)
-    nan_in, nan_alb = nan_planes(ch + 3, cw + 5, rng)
-    nan_lin = nan_in[0]
-    nan_row = frame_row(bench_cam.rows(cw, ch), bench_cam.rows(cw, ch), True,
-                        *odd)
-    report = []
-    for elabel, eargs, time_it in (
-            (f"monu9 {w}x{h} dolly blend, r = 0",
-             (blended, h, w, g["albedo"], dolly_row), True),
-            (f"monu9 {w}x{h} denoised r = 2", (denoised, h, w), True),
-            (f"NaN planes {cw + 5}x{ch + 3} cropped to {cw}x{ch}, modulated",
-             (nan_lin, ch, cw, nan_alb, nan_row), False),
-            (f"NaN planes {cw + 5}x{ch + 3} cropped to {cw}x{ch}",
-             (nan_lin, ch, cw), False)):
-        f32, u8, u8_max = compare_encode(eargs)
-        u8_worst = max(u8_worst, u8_max)
-        line = (f"encode {elabel}: f32 values differing {f32}, u8 values "
-                f"differing {u8} (max {u8_max})")
-        assert f32 == 0 and u8_max <= 1, (elabel, f32, u8)
-        if time_it:
-            albedo = len(eargs) > 3
-            ms = cuda_time(lambda: epilogue.encode_cuda(*eargs), 20)
-            plain = cuda_time(lambda: epilogue.encode_plain(*eargs), 3)
-            b, by = bound(encode_bytes(h, w, albedo),
-                          ENCODE_FLOPS_PER_PX * h * w, FP32_FLOPS_PER_S)
-            line += (f"; kernel {ms:.4f} ms (bound {b:.4f}, {by}; share "
-                     f"{b / ms:.3f}), plain {plain:.3f} ms")
-        report.append(line)
     # every float32 in [0, 1] (the clamp sends all others to 0, 1 or
     # NaN), in chunks of three 4096x4096 planes, and the specials
     top = int(np.float32(1.0).view(np.int32))
@@ -940,15 +905,14 @@ def phase_epilogue(smi, dolly, poses):
     want, _ = epilogue.encode_plain(special, 1, 9)
     u8_all += n_differ(img, want)
     u8_worst = max(u8_worst, u8_all_max)
-    report.append(f"encode of every float32 in [0, 1] ({top + 1} values) "
-                  f"and of NaN, +-inf, -0, negatives and > 1: u8 values "
-                  f"differing {u8_all} (max {u8_all_max})")
-    for line in report:
-        say(19, f"{line} [{smi}]")
+    say(19, f"encode of every float32 in [0, 1] ({top + 1} values) and of "
+            f"NaN, +-inf, -0, negatives and > 1: u8 values differing "
+            f"{u8_all} (max {u8_all_max}) [{smi}]")
     assert u8_all_max <= 1 and int((img != want).sum()) == 0
-    entry = {"max_abs_err": float(u8_worst), **timed[(WIDTH, HEIGHT)],
-             "times_by_size": {f"{w}x{h}": t for (w, h), t in timed.items()}}
-    return entry, u8_worst
+    main = timed[f"still epilogue menger bench camera {WIDTH}x{HEIGHT} "
+                 "history valid True"]
+    entry = {"max_abs_err": float(u8_worst), **main, "times_by_case": timed}
+    return entry, encodes, u8_worst
 
 
 def drive_path(phase, label, scene_name, w, h, path_name, radius, warmup,
@@ -1106,13 +1070,17 @@ def drive_path(phase, label, scene_name, w, h, path_name, radius, warmup,
     assert f32 == 0 and u8_max <= 1, (f32, u8, u8_max)  # phase 19's bar
     checks += (f"; encode f32 values differing {f32}, u8 values differing "
                f"{u8}")
-    stage["encode"] = cuda_time(lambda: epilogue.encode_cuda(*eargs), 20)
+    t = time_epilogue_case(encode_case(label, eargs, g["depth"]))
+    stage["encode"] = t["ms"]
+    stage["encode in the frame's cache state"] = t["frame_cache_ms"]
+    stage["encode, eager calls"] = t["eager_ms"]
     stage["encode plain"] = cuda_time(lambda: epilogue.encode_plain(*eargs),
                                       3)
-    entries["encode"] = {"max_abs_err": float(u8_max), "ms": stage["encode"],
-                         "plain_ms": stage["encode plain"]}
-    entries["encode"]["bound_ms"], entries["encode"]["bound_by"] = bound(
-        encode_bytes(h, w, not radius), 0, FP32_FLOPS_PER_S)
+    entries["encode"] = {"max_abs_err": float(u8_max),
+                         "plain_ms": stage["encode plain"],
+                         **{k: t[k] for k in ("ms", "frame_cache_ms",
+                                              "eager_ms", "bound_ms",
+                                              "bound_by")}}
     say(phase, "kernels alone on the next frame's inputs: "
                + ", ".join(f"{k} {v:.4f} ms" for k, v in stage.items())
                + f"; {checks} [{smi}]")
@@ -1328,6 +1296,20 @@ def phase_sequence(label, scene_name, w, h, path_name, radius, burst, smi,
         fn = run_loop if mode == "loop" else run_seq
         for _ in range(BURSTS):
             ms[mode].append(cuda_time(lambda: fn(frames), 1) / frames)
+    # the device activities (and copies among them) of one frame of
+    # the sequence: those between its first and last frames' trace
+    # launches in one profiled sequence
+    from voxtracer_torch.app.profile import frame_activities
+
+    activities, copies = frame_activities(lambda: run_seq(frames),
+                                          torch.device("cuda"), frames)
+    say(12, f"{label}: device activities a replayed frame {activities:g}, "
+            f"copies among them {copies:g} (the row-reading launches' rows"
+            + ("; a still frame blends into the carried state" if burst
+               else "; a reprojecting frame copies its blend into it")
+            + f") [{smi}]")
+    if burst and not radius:  # trace's and still epilogue's rows only
+        assert copies == 2, copies
     loop.render(path(at[id(loop)]))  # both still render after it
     seq.render(path(at[id(seq)]))
     # the sequence's host prologue: the cameras' rows, packed before the
@@ -1582,12 +1564,21 @@ def phase_stallbench(smi):
             f"kernel {ser1['ms']} ms, plain {p_ms:.1f} ms at {default_trips} "
             f"trips, kernel == plain there; launches {launches} [{smi}]")
     # ser:1 sweeps a 24-row window of the table per element each trip: a
-    # shared load and a select per row, 4096 elements
-    bound_ms, bound_by = bound(
-        (256 * 128 + 2 * 32 * 128) * 4,
-        default_trips * 4096 * 2 * 24, LANE_OPS_PER_S)
+    # shared load and a select per row, 4096 elements.  Over the whole
+    # card's lanes, and over one SM's (the program it mirrors,
+    # voxtracer/app/stallbench.py:65, is one program, the kernel one
+    # block of 1024 threads on one SM)
+    nbytes = (256 * 128 + 2 * 32 * 128) * 4
+    ops = default_trips * 4096 * 2 * 24
+    bound_ms, bound_by = bound(nbytes, ops, LANE_OPS_PER_S)
+    one_sm_ms, _ = bound(nbytes, ops, LANE_OPS_PER_S / N_SMS)
+    say(11, f"ser:1 bound {bound_ms:.4f} ms over the card's lanes (share "
+            f"{bound_ms / ser1['ms']:.4f}), {one_sm_ms:.4f} ms over one SM's "
+            f"(share {one_sm_ms / ser1['ms']:.4f}) [{smi}]")
     return launches, {"max_abs_err": 0.0, "ms": ser1["ms"], "plain_ms": p_ms,
-                      "bound_ms": bound_ms, "bound_by": bound_by}
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "bound_one_sm_ms": one_sm_ms,
+                      "share_one_sm": one_sm_ms / ser1["ms"]}
 
 
 def phase_harness(smi):
@@ -1863,7 +1854,8 @@ def hold_stages(r):
                               if a.dtype == torch.uint8), default=0)))
         return got
 
-    def still_stage(*args):
+    def still_stage(*args, in_place=False):
+        assert not in_place  # render() blends out of place
         return held_outputs("epilogue", epilogue.still_epilogue_cuda(*args),
                             epilogue.still_epilogue_plain(*args))
 
@@ -2017,7 +2009,7 @@ def main():
     phase_trace_sizes(smi)
     temporal_err, dolly, poses = phase_temporal(smi)
     denoise_err = phase_denoise(smi, dolly)
-    epilogue_entry, epilogue_err = phase_epilogue(smi, dolly, poses)
+    epilogue_entry, encode_cases, epilogue_err = phase_epilogue(smi)
     per_frame["config 4"], launches, entries = drive_path(
         7, "config 4: monu9", "monu9", 1920, 1080, "dolly", 2, WARMUP, BURSTS,
         FRAMES, smi)
@@ -2054,6 +2046,7 @@ def main():
     launches["trace"] = main_counts["trace"]
     launches["epilogue"] = main_counts["epilogue"]
     entries["epilogue"] = epilogue_entry
+    entries["encode"]["times_by_case"] = encode_cases
     entries["trace"] = {
         **main_trace, "max_abs_err": max(
             main_trace["max_abs_err"], trace_err,

@@ -449,7 +449,7 @@ def _device_row(row, device):
 
 @pytest.mark.parametrize("valid", [True, False], ids=["history", "none"])
 @pytest.mark.parametrize("planes", ["random", "nan_inf", "menger"])
-@pytest.mark.parametrize("h, w", [(1, 1), (3, 5), (187, 333)])
+@pytest.mark.parametrize("h, w", [(1, 1), (3, 5), (187, 333), (720, 1280)])
 def test_still_epilogue_kernel_matches_plain(cuda, h, w, planes, valid):
     """The still epilogue kernel, by value and by row, with and without
     the linear and without the albedo (the blend alone), against its
@@ -488,7 +488,8 @@ def test_still_epilogue_kernel_matches_plain(cuda, h, w, planes, valid):
 @pytest.mark.parametrize("albedo", [True, False], ids=["modulated", "plain"])
 @pytest.mark.parametrize("specials", [False, True], ids=["random", "nan_inf"])
 @pytest.mark.parametrize("h, w, crop", [(1, 1, 0), (3, 5, 0), (187, 333, 0),
-                                        (190, 338, 3)])
+                                        (190, 338, 3), (720, 1280, 0),
+                                        (1084, 1924, 4)])
 def test_encode_kernel_matches_plain(cuda, h, w, crop, specials, albedo):
     """The encode kernel (cropped, modulated or not, by value and by row,
     with and without the linear) against its plain version."""
@@ -508,6 +509,44 @@ def test_encode_kernel_matches_plain(cuda, h, w, crop, specials, albedo):
             else:
                 assert _bits_equal(out, want[1])
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("valid", [True, False], ids=["history", "none"])
+@pytest.mark.parametrize("h, w", [(48, 64), (187, 333), (720, 1280),
+                                  (2160, 3840)])
+def test_still_epilogue_kernel_in_place(cuda, h, w, valid):
+    """The still epilogue kernel on menger planes at widths that are (64,
+    1280, 3840: four pixels a thread) and are not (333: the scalar path)
+    multiples of 4, out of place and in place (into a copy of the
+    history: blend, next blend and depth written over it), by value and
+    by row, with and without the linear, and the blend alone: float32
+    bit-equal and u8 equal to the plain version out of place."""
+    g = _menger_gbuf(MENGER, cuda, w, h)
+    rng = np.random.default_rng(3)
+    blend = torch.from_numpy(
+        rng.uniform(0.02, 1.0, (h, w)).astype(np.float32)).to(cuda)
+    shift = torch.from_numpy(
+        rng.uniform(-0.02, 0.02, (h, w)).astype(np.float32)).to(cuda)
+    ins = (g["color"], g["normal"], g["depth"], g["color"] * 0.5, blend,
+           torch.where(g["depth"] >= 0, g["depth"] + shift, g["depth"]))
+    row = _epilogue_row(w, h, valid)
+    for albedo in (g["albedo"], None):
+        want = epilogue.still_epilogue_plain(*ins, albedo, row, True)
+        for params in (row, _device_row(row, cuda)):
+            for keep in (False, True):
+                history = [t.clone() for t in ins[3:]]
+                got = epilogue.still_epilogue_cuda(
+                    *ins[:3], *history, albedo, params, keep, in_place=True)
+                out = epilogue.still_epilogue_cuda(*ins, albedo, params, keep)
+                assert got[0] is history[0] and got[1] is history[1]
+                assert _bits_equal(history[2], ins[2])
+                for result in (got, out):
+                    for a, b in zip(result, want):
+                        assert a is None or _bits_equal(a, b)
+    torch.cuda.synchronize()
+    if valid:
+        kept = (want[0] != ins[0]).any(0).float().mean()
+        assert 0 < kept < 1, "degenerate comparison: one validity branch"
 
 
 def test_encode_kernel_on_every_float_in_the_unit_interval(cuda):
@@ -622,6 +661,43 @@ def test_graph_replayed_sequence_equals_the_loop(cuda, path, radius):
     follow = camera_paths.orbit(scene, distance=0.6)(0.5)
     assert torch.equal(graph.render(follow)["image"],
                        loop.render(follow)["image"])
+
+
+@pytest.mark.parametrize("radius", [0, 2])
+def test_replayed_still_frames_blend_into_the_carried_state(cuda, radius):
+    """At a width that is a multiple of 4, a mixed path replayed from
+    CUDA graphs equals the loop; a replayed still frame copies nothing
+    into the carried state (its epilogue blends there): its only copies
+    are the rows of the row-reading launches (trace, still epilogue,
+    denoise), three fewer than a reprojecting frame's at r = 0 beside
+    its rows (trace, temporal, encode)."""
+    from voxtracer_torch.app.profile import frame_activities
+
+    scene = load_scene("chr_knight")
+    cams = _sequence_paths(scene)["mixed"]
+    kw = dict(scene=scene, height=96, width=128, device="cuda",
+              denoise_radius=radius, lean=True)
+    loop, seq = Renderer(**kw), Renderer(**kw)
+    for _ in range(2):
+        want = torch.stack([loop.render(c)["image"] for c in cams])
+        assert torch.equal(seq.render_sequence(cams), want)
+        for k in STATE_PLANES:
+            assert torch.equal(seq.state[k], loop.state[k]), k
+
+    def copies(path):  # a graph's copy shows as Memcpy or memcpy32_*
+        return frame_activities(lambda: seq.render_sequence(path), cuda,
+                                len(path))[1]
+
+    # per frame, within 4 frames of one kind
+    still, moving = [cams[4]] * 4, [cams[i % 2 + 2] for i in range(4)]
+    seq.render_sequence(still)
+    per_still = copies(still)
+    seq.render_sequence(moving)
+    per_moving = copies(moving)
+    rows = 3 if radius else 2  # trace, still epilogue (, denoise)
+    assert per_still == rows, per_still
+    if not radius:
+        assert per_moving == 3 + 3, per_moving
 
 
 def test_burst_on_cuda_returns_the_last_frame_of_any_length(cuda):

@@ -177,6 +177,69 @@ def test_still_epilogue_is_the_composition_it_replaces(how):
 
 
 @pytest.mark.parametrize("how", ["value", "row"])
+@pytest.mark.parametrize("albedo", [True, False], ids=["r0", "blend_alone"])
+@pytest.mark.parametrize("specials", [False, True], ids=["random", "nan_inf"])
+@pytest.mark.parametrize("history_valid", [True, False])
+def test_still_epilogue_in_place_equals_out_of_place(history_valid, specials,
+                                                     albedo, how):
+    """``in_place=True`` overwrites the history it reads (blend over the
+    old colour, next blend over the old blend, depth over the old depth)
+    with the values the out-of-place call returns, bit for bit, and
+    returns the history's tensors."""
+    x, alb = _planes(seed=6, specials=specials)
+    planes, alb = _torch(x, alb)
+    alb = alb if albedo else None
+    row = _by(_row(history_valid, 0.5), how)
+    want = epilogue.still_epilogue_plain(*planes, alb, row, keep_linear=True)
+    history = [t.clone() for t in planes[3:]]
+    got = epilogue.still_epilogue_plain(*planes[:3], *history, alb, row,
+                                        keep_linear=True, in_place=True)
+    assert got[0] is history[0] and got[1] is history[1]
+    assert _same(history[0], want[0]) and _same(history[1], want[1])
+    assert _same(history[2], planes[2])
+    for a, b in zip(got[2:], want[2:]):
+        assert (a is None and b is None) or _same(a, b)
+    if history_valid and not specials:  # both branches of the test ran
+        used = (want[0] != planes[0]).any(0).float().mean()
+        assert 0 < used < 1
+
+
+@pytest.mark.parametrize("history_valid", [True, False])
+def test_still_kept_marks_the_pixels_that_read_their_history(history_valid):
+    """``renderbench.still_kept`` (what the timed bound counts a pixel's
+    history reads by) is true exactly where the still blend's output
+    changes with the old colour, and ``still_bytes`` counts 47 B a pixel
+    that misses or has no history, 63 a hit that drops it and 79 one
+    that keeps it (r = 0; 12 more with the linear, 15 fewer without the
+    albedo)."""
+    from voxtracer_torch.app.renderbench import still_bytes, still_kept
+
+    x, _ = _planes(seed=8)
+    planes, _ = _torch(x, x["sampled_color"])
+    row = _row(history_valid, 0.5)
+    kept = still_kept(planes, row)
+    blended = epilogue.still_epilogue_plain(*planes, None, row)[0]
+    moved = list(planes)
+    moved[3] = planes[3] + 0.25
+    changed = (epilogue.still_epilogue_plain(*moved, None, row)[0]
+               != blended).any(0)
+    assert torch.equal(kept, changed)
+    hit = planes[2] >= 0
+    n, n_hit, n_kept = hit.numel(), int(hit.sum()), int(kept.sum())
+    if history_valid:
+        assert 0 < n_kept < n_hit
+        want = 47 * n + 16 * n_hit + 16 * n_kept
+    else:
+        assert n_kept == 0
+        want = 47 * n
+    assert still_bytes(planes[2], kept, history_valid) == want
+    assert still_bytes(planes[2], kept, history_valid, linear=True) == (
+        want + 12 * n)
+    assert still_bytes(planes[2], kept, history_valid, albedo=False) == (
+        want - 15 * n)
+
+
+@pytest.mark.parametrize("how", ["value", "row"])
 @pytest.mark.parametrize("factor", [0.0, 0.5])
 def test_encode_matches_reference(factor, how):
     """The encode of a (3, H + 3, W + 5) plane cropped to (H, W), with
@@ -333,7 +396,8 @@ def _today_encode(linear, height, width, albedo=None, row=None,
 
 
 def _today_still(color, normal, depth, old_color, old_blend, old_depth,
-                 albedo, row, keep_linear=False, dest=None):
+                 albedo, row, keep_linear=False, dest=None, in_place=False):
+    assert not in_place  # only the card's sequence path blends in place
     blended, next_blend = temporal.temporal_blend_still_row(
         color, normal, depth, old_color, old_blend, old_depth, row)
     if albedo is None:

@@ -57,3 +57,46 @@ def test_profile_runs_on_the_cpu(capsys, batch):
 def test_profile_refuses_frames_that_are_no_whole_batches():
     with pytest.raises(SystemExit, match="no multiple"):
         profile.main(["--device", "cpu", "--frames", "5", "--batch", "2"])
+
+
+def _activity(name, start):
+    return types.SimpleNamespace(
+        name=name, time_range=types.SimpleNamespace(start=start))
+
+
+# a sequence of 3 frames: its rows and state in (4 copies and a fill),
+# each frame (its row, the trace, the blend), its state out (2 copies);
+# listed out of time order, as the profiler may
+_FRAME = ["Memcpy DtoD", "trace_kernel", "still_epilogue_kernel"]
+_RANGE = (["Memcpy HtoD"] + ["Memcpy DtoD"] * 3 + ["fill"]
+          + _FRAME * 3 + ["Memcpy DtoD"] * 2)
+
+
+def _range(names):
+    return [_activity(n, t) for t, n in reversed(list(enumerate(names)))]
+
+
+@pytest.mark.parametrize(
+    "ranges",
+    [
+        [_range(_RANGE)],
+        [_range(_RANGE[5:])],  # the profiler missed the start of the range
+        [_range(["Memcpy DtoD"] * 4 + _RANGE)],  # ... or added to it
+        [_range(_RANGE[7:]), _range(_RANGE)],  # a frame's trace missed
+    ],
+    ids=["whole", "head-dropped", "head-added", "frame-dropped-then-whole"],
+)
+def test_frame_activities_count_between_the_first_and_last_frames(
+        monkeypatch, ranges):
+    calls = iter(ranges)
+    monkeypatch.setattr(profile, "profile_range",
+                        lambda advance, device: (0.0, next(calls), 0.0))
+    assert profile.frame_activities(lambda: None, None, 3) == (3.0, 1.0)
+
+
+def test_frame_activities_refuse_a_range_that_misses_a_frame(monkeypatch):
+    monkeypatch.setattr(profile, "profile_range",
+                        lambda advance, device: (0.0, _range(_RANGE[7:]), 0.0))
+    with pytest.raises(RuntimeError, match=r"launched \*trace_kernel\* "
+                                           r"\[2, 2, 2\] times"):
+        profile.frame_activities(lambda: None, None, 3)

@@ -16,8 +16,10 @@ from voxtracer.engine.camera import Camera as JCamera
 from voxtracer.engine.pipeline import Renderer as JRenderer
 from voxtracer_torch.engine import params as P
 from voxtracer_torch.engine.camera import Camera
+from voxtracer_torch.engine import pipeline
 from voxtracer_torch.engine.pipeline import STATE_PLANES, Renderer
-from voxtracer_torch.ops import denoise, temporal
+from voxtracer_torch.ops import denoise, epilogue, temporal
+from voxtracer_torch.ops import trace as trace_op
 from voxtracer_torch.scene import GridScene, VoxelList, default_scene
 
 STILL = dict(position=np.array([0.3, 0.2, -2.0]))
@@ -42,6 +44,13 @@ def _mixed(camera=Camera):
     return [o[0], o[0], o[1], o[2], o[2], o[2], o[0]]
 
 
+def _segments(camera=Camera):
+    """Still and moving segments of odd and even lengths: still x3, pan
+    x2, still x2, pan x1, still x1 (from a fresh renderer)."""
+    o = _orbit(4, camera=camera)
+    return [o[0], o[0], o[0], o[1], o[2], o[2], o[2], o[3], o[3]]
+
+
 def _pair(scene, **kw):
     kw = dict(scene=scene, height=16, width=16, device="cpu", **kw)
     return Renderer(**kw), Renderer(**kw)
@@ -64,6 +73,10 @@ PATHS = {
     "mixed-r0": (lambda: GridScene.from_voxels(default_scene(radius=6, seed=3)),
                  _mixed, 0),
     "mixed-r2": (_tiny_scene, _mixed, 2),
+    "segments-r0": (
+        lambda: GridScene.from_voxels(default_scene(radius=6, seed=3)),
+        _segments, 0),
+    "segments-r1": (_tiny_scene, _segments, 1),
 }
 
 
@@ -129,6 +142,79 @@ def test_burst_returns_final_frame():
     assert a.still_sample == 3
 
 
+@pytest.mark.parametrize("n", [3, 4])
+def test_burst_after_a_moving_sequence_equals_renders(n):
+    """A burst of odd or even length that follows a moving sequence
+    equals as many ``render()`` calls: frame and state."""
+    scene = GridScene.from_voxels(default_scene(radius=6, seed=3))
+    a, b = _pair(scene)
+    moving = _orbit(3)
+    a.render_sequence(moving)
+    for c in moving:
+        b.render(c)
+    final = a.render_burst(moving[-1], n)
+    for _ in range(n):
+        out = b.render(moving[-1])
+    np.testing.assert_array_equal(final.numpy(), out["image"].numpy())
+    _assert_same_state(a, b)
+    assert a.still_sample == n + 1
+
+
+@pytest.mark.parametrize("radius", [0, 1])
+def test_sequence_runner_blends_still_frames_into_its_state(radius):
+    """The card's sequence path (``SequenceRunner``), run eagerly on CPU
+    tensors: a still frame's epilogue blends straight into the carried
+    state (its tensors stay where they are, the still stage is asked to
+    work in place), a reprojecting frame's blend is copied there; frames
+    and state equal ``render()`` calls on a path of still and moving
+    segments of odd and even lengths."""
+    scene = GridScene.from_voxels(default_scene(radius=6, seed=3))
+    seq, loop = _pair(scene, denoise_radius=radius)
+    cams = _segments()
+    rows, flags, _, _ = seq._pack_sequence(cams)
+    assert flags == [False] * 3 + [True] * 2 + [False] * 2 + [True, False]
+
+    def host(p):  # the plain trace and temporal blend read numpy rows
+        return p.row.numpy()
+
+    def trace_stage(tables, p, noise, frame, h, w):
+        row = host(p)
+        return trace_op.render_sample_plain(
+            tables, row[P.ROW_TRACE:P.ROW_FRAME], noise,
+            int(row[P.ROW_FRAME:P.ROW_FRAME + 1].view(np.int32)[0]), h, w)
+
+    def temporal_stage(*args):
+        row = host(args[-1])
+        return temporal.temporal_blend_reproject(
+            *args[:-1], row[P.ROW_TEMPORAL:P.ROW_DENOISE])
+
+    def denoise_stage(colors, normal, depth, albedo, node, p, r):
+        row = host(p)
+        return denoise.denoise(colors, normal, depth, albedo, node,
+                               row[P.ROW_DENOISE:P.ROW_KEEP_SAMPLE], r)
+
+    asked = []
+
+    def still_stage(*args, in_place=False):
+        asked.append(in_place)
+        return epilogue.still_epilogue_plain(*args, in_place=in_place)
+
+    stages = (trace_stage, temporal_stage, denoise_stage, still_stage,
+              epilogue.encode_plain)
+    runner = pipeline.SequenceRunner(None, seq.tables, seq.noise, 16, 16,
+                                     radius, stages)
+    runner.load_rows(rows, len(rows))
+    runner.load_state(seq.state, True)
+    where = {k: runner.state[k] for k in STATE_PLANES}
+    runner.run(Renderer._segments(flags), graph=False)
+    assert asked == [True] * flags.count(False)
+    assert all(runner.state[k] is where[k] for k in STATE_PLANES)
+    want = [loop.render(c)["image"] for c in cams]
+    assert torch.equal(runner.frames, torch.stack(want))
+    for k in STATE_PLANES:
+        assert torch.equal(runner.state[k], loop.state[k]), k
+
+
 def test_sequence_after_realtime_frames_continues_accumulation():
     """A batch appended to live realtime history consumes the existing
     state (history_valid rides in frame 0's row)."""
@@ -157,6 +243,7 @@ def test_empty_sequence_rejected():
     ("orbit", 0, (0, 0, 0, 0, 0)),
     ("mixed", 0, (0, 0, 0, 0, 0, 0, 0)),
     ("mixed", 1, (0, 0, 0, 0, 0, 0, 0)),
+    ("segments", 0, (0,) * 9),
 ])
 def test_sequence_matches_jax_render_sequence(case, radius, pins):
     """The same cameras through the JAX package's ``render_sequence``
@@ -170,7 +257,8 @@ def test_sequence_matches_jax_render_sequence(case, radius, pins):
     jitter = rng.uniform(-0.05, 0.05, 3)
 
     def cams(camera):
-        base = _orbit(5, camera=camera) if case == "orbit" else _mixed(camera)
+        base = {"orbit": lambda c: _orbit(5, camera=c), "mixed": _mixed,
+                "segments": _segments}[case](camera)
         return [camera(position=c.position + jitter, direction=c.direction)
                 for c in base]
 

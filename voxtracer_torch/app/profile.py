@@ -99,6 +99,30 @@ def profile_range(advance: Callable[[], None], device, logdir=None):
     return span.elapsed_us(), dev, busy_us
 
 
+def frame_activities(advance: Callable[[], None], device, frames: int,
+                     first: str = "trace_kernel", tries: int = 3):
+    """Device activities and copies a frame of ``advance()``, which
+    renders ``frames`` frames that each launch the kernel named
+    ``*first*`` once: those from the first frame's launch of it up to the
+    last frame's, over ``frames - 1``.  The work before the first frame
+    and after the last (a sequence's rows and state in and out) falls
+    outside that window, and so does whatever the profiler drops or adds
+    at the ends of its range.  A range that lacks one of the frames'
+    launches is profiled again, ``tries`` times at most."""
+    seen = []
+    for _ in range(tries):
+        _, dev, _ = profile_range(advance, device)
+        dev = sorted(dev, key=lambda e: e.time_range.start)
+        at = [i for i, e in enumerate(dev) if first in e.name]
+        if len(at) == frames:
+            window = dev[at[0]:at[-1]]
+            copies = sum("memcpy" in e.name.lower() for e in window)
+            return len(window) / (frames - 1), copies / (frames - 1)
+        seen.append(len(at))
+    raise RuntimeError(f"{frames} frames launched *{first}* {seen} times "
+                       "in the profiled ranges")
+
+
 def activity_rows(dev) -> List[Tuple[str, float, int]]:
     """``(name, device ns, count)`` per activity name, by descending
     device time."""

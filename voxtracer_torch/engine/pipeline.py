@@ -146,13 +146,18 @@ def frame_stages(
     encode: Callable,
     keep_linear: bool = False,
     dest=None,  # (frames, slot): write the image at frames[slot]
+    in_place: bool = False,  # a still frame blends into ``history``
 ):
     """Trace, temporal blend, denoise and u8 encode of the frame whose
     parameters ``row`` holds.  A numpy row gives the stages its slices
     by value; a :class:`DeviceRow` makes every stage read the row on the
     device.  Returns ``(gbuf, blended, next_blend, out, image)``: ``out``
     is the linear frame the image encodes (None at radius 0 unless
-    ``keep_linear``), ``image`` None where ``dest`` took it."""
+    ``keep_linear``), ``image`` None where ``dest`` took it.  With
+    ``in_place`` a still frame's epilogue overwrites ``history`` with
+    its blend, next blend and depth (``blended`` and ``next_blend`` are
+    then its first two planes); a reprojecting frame leaves it as it
+    is."""
     if isinstance(row, DeviceRow):
         trace_p = temporal_p = denoise_p = row
         frame = None  # in the device row
@@ -167,7 +172,7 @@ def frame_stages(
     albedo = None if radius else gbuf["albedo"]
     if not reproject:
         blended, next_blend, out, image = still_epilogue(
-            *planes, albedo, row, keep_linear, dest)
+            *planes, albedo, row, keep_linear, dest, in_place=in_place)
         if not radius:
             return gbuf, blended, next_blend, out, image
     else:
@@ -260,9 +265,10 @@ class SequenceRunner:
     A captured graph freezes every address and every by-value kernel
     argument, so what changes from frame to frame lives in buffers this
     object owns: the path's rows and a device cursor into them, the
-    carried state (the blend of a frame is copied into it at the frame's
-    end: the temporal kernel gathers neighbours of the history and
-    cannot blend in place), and the u8 frames, which the epilogue
+    carried state (a still frame's epilogue blends straight into it; a
+    reprojecting frame's blend is copied into it at the frame's end: the
+    temporal kernel gathers neighbours of the history and cannot blend
+    in place), and the u8 frames, which the epilogue
     kernels write at a device slot that advances by a device step (1 for
     a sequence, 0 for a burst, which so holds one image whatever its
     length).  The last nodes of the graph advance cursor and slot, so
@@ -271,7 +277,8 @@ class SequenceRunner:
 
     The graphs are captured after one eager frame has built the kernels
     and set their attributes.  They share one memory pool: each frame's
-    results are copied into the static buffers before the next replay.
+    results are in the static buffers (written there, or copied there)
+    before the next replay.
     A failed capture or replay raises; nothing falls back to the loop.
     Captures and replays go to the current stream, and the row-reading
     kernels stage their rows in one constant-memory slot per process: one
@@ -329,10 +336,12 @@ class SequenceRunner:
             tuple(self.state[k] for k in STATE_PLANES), self.tables,
             self.noise, row, reproject, self.height, self.width,
             self.radius, *self.stages, dest=(self.frames, self.slot),
+            in_place=not reproject,
         )
-        self.state["accum_color"].copy_(blended)
-        self.state["accum_blend"].copy_(next_blend)
-        self.state["old_depth"].copy_(gbuf["depth"])
+        if reproject:
+            self.state["accum_color"].copy_(blended)
+            self.state["accum_blend"].copy_(next_blend)
+            self.state["old_depth"].copy_(gbuf["depth"])
         self.cursor.add_(1)
         self.slot.add_(self.step)
 

@@ -174,9 +174,10 @@ def load() -> ctypes.CDLL:
     lib.vt_stall_launch.restype = ctypes.c_int
     # vt_still_epilogue_launch(params, row, color, normal, depth,
     #   old_color, old_blend, old_depth, albedo, height, width, blended,
-    #   next_blend, linear, image, slot, n_images, stream) -> cudaError_t
+    #   next_blend, linear, image, slot, n_images, in_place, stream)
+    #   -> cudaError_t
     lib.vt_still_epilogue_launch.argtypes = [p] * 9 + [i] * 2 + [p] * 5 + [
-        i, p]
+        i, i, p]
     lib.vt_still_epilogue_launch.restype = ctypes.c_int
     # vt_encode_launch(params, row, src, albedo, in_h, in_w, height, width,
     #   linear, image, slot, n_images, stream) -> cudaError_t

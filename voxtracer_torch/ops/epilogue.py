@@ -25,6 +25,10 @@ slice the kernels' row-reading entries copy to constant memory (inside a
 captured CUDA graph).  An image goes to a fresh (H, W, 3) u8 tensor, or,
 given ``dest = (frames, slot)``, into ``frames[slot]`` where ``slot`` is
 a (1,) int64 tensor on the device (the sequence path's frame slot).
+With ``in_place=True`` the still epilogue blends into the history it
+reads: the blend over ``old_color``, the next blend over ``old_blend``
+and this frame's depth over ``old_depth`` (the sequence path's carried
+state), with the values of the out-of-place call.
 """
 
 from __future__ import annotations
@@ -95,13 +99,21 @@ def still_epilogue_plain(
     row,  # the frame's numpy row or DeviceRow
     keep_linear: bool = False,
     dest: Dest = None,
+    in_place: bool = False,
 ):
     """``(blended, next_blend, out, image)``: the still blend and, with
     an albedo plane, the radius-0 modulate and the u8 image (``out`` and
-    ``image`` as :func:`encode_plain`'s; both None without albedo)."""
+    ``image`` as :func:`encode_plain`'s; both None without albedo).
+    ``in_place``: ``blended`` is ``old_color`` and ``next_blend`` is
+    ``old_blend``, overwritten, and ``depth`` is copied into
+    ``old_depth``."""
     blended, next_blend = temporal_blend_still_row(
         sampled_color, normal, depth, old_color, old_blend, old_depth,
         row.row if isinstance(row, DeviceRow) else row)
+    if in_place:
+        blended = old_color.copy_(blended)
+        next_blend = old_blend.copy_(next_blend)
+        old_depth.copy_(depth)
     if albedo is None:
         return blended, next_blend, None, None
     height, width = depth.shape
@@ -166,10 +178,12 @@ def still_epilogue_cuda(
     row,
     keep_linear: bool = False,
     dest: Dest = None,
+    in_place: bool = False,
 ):
     """:func:`still_epilogue_plain` from the hand-written CUDA kernel
-    (csrc/epilogue.cu, one launch).  Launches on the current stream and
-    does not synchronise.  Raises if an input is not what the kernel
+    (csrc/epilogue.cu, one launch; with ``in_place`` it writes over the
+    history it reads).  Launches on the current stream and does not
+    synchronise.  Raises if an input is not what the kernel
     takes or the launch is refused."""
     planes = (sampled_color, normal, depth, old_color, old_blend, old_depth)
     _check_planes(*planes)
@@ -185,8 +199,11 @@ def still_epilogue_cuda(
         ins = planes + (albedo,)
     _check_cuda(ins, dev)
     params, row_ptr, _host = _params(row, dev)
-    blended = torch.empty_like(sampled_color)
-    next_blend = torch.empty_like(depth)
+    if in_place:
+        blended, next_blend = old_color, old_blend
+    else:
+        blended = torch.empty_like(sampled_color)
+        next_blend = torch.empty_like(depth)
     out = image = None
     image_ptr = slot_ptr = None
     n_images = 0
@@ -202,7 +219,8 @@ def still_epilogue_cuda(
             None if albedo is None else albedo.data_ptr(),
             height, width, blended.data_ptr(), next_blend.data_ptr(),
             None if out is None else out.data_ptr(), image_ptr, slot_ptr,
-            n_images, torch.cuda.current_stream(dev).cuda_stream)
+            n_images, int(in_place),
+            torch.cuda.current_stream(dev).cuda_stream)
     still_epilogue_cuda.launches += 1
     return blended, next_blend, out, image
 
@@ -272,13 +290,14 @@ def _pick(depth, plain, cuda, what):
 
 
 def still_epilogue(sampled_color, normal, depth, old_color, old_blend,
-                   old_depth, albedo, row, keep_linear=False, dest=None):
+                   old_depth, albedo, row, keep_linear=False, dest=None,
+                   in_place=False):
     """The still epilogue on the tensors' device: the plain composition
     for CPU tensors, the CUDA kernel for CUDA tensors."""
     fn = _pick(depth, still_epilogue_plain, still_epilogue_cuda,
                "still epilogue")
     return fn(sampled_color, normal, depth, old_color, old_blend, old_depth,
-              albedo, row, keep_linear, dest)
+              albedo, row, keep_linear, dest, in_place)
 
 
 def encode(linear, height, width, albedo=None, row=None, keep_linear=False,
