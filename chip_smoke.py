@@ -11,7 +11,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
    trace kernel's registers, spills, shared bytes and resident warps
    per SM; ptxas's registers, spills and static shared bytes of each
    denoise instance (r = 1-8, and 0: the radius at run time) and the
-   dynamic shared bytes of its tile at r in {1, 2, 4, 8}.
+   dynamic shared bytes of its tile at r in {1, 2, 4, 8}; the same of
+   the stall kernel's three instances (static, ser, ind): no spills.
 2. golden: the trace kernel against tests/golden/oracle_8x8x8_32.npz
    (the numpy oracle's pinned output) at the parity bar.
 3. plain: the trace kernel against its plain torch version, both on the
@@ -58,13 +59,17 @@ Phases (each prints one line; any failure raises and exits non-zero):
 10. the channels-last ``temporal_blend`` on CUDA tensors (one resample
     kernel launch) against the planar reprojecting body around the
     plain resampler at 1920x1080: equal.
-11. stallbench: the stall kernel against its plain version for every
-    mode and h in {1, 2, 4}, and for pre 512 and mid 256 (the matrix's
-    longest chains), at 64 trips: equal; then the CLI's default matrix
-    at its default trips (cycles per trip, stall cycles per handoff),
-    and ser:1 against its plain version at those trips: equal; ser:1's
-    bound over the whole card's lanes and over one SM's (the kernel is
-    one block on one SM).
+11. stallbench: the stall kernel against its plain version on
+    ``stallbench.check_cases()`` (every mode at h in {1, 2, 4, 8} and 64
+    trips, pre 512 and mid 256 (the matrix's longest chains), ind with
+    both, odd trip and sweep counts): equal; then the CLI's default
+    matrix at its default trips (cycles per trip, stall cycles per
+    handoff, bound and share), and ser:1 and static:1 against their
+    plain versions at those trips: equal; the SM clock; ser:1's and
+    static:1's bound on one SM (the kernel is one block), counted from
+    what the probe computes (``stallbench.stall_work``), the whole
+    card's, and the count of the TPU's 24-row ladder that the kernel's
+    first, ladder-walking version was held to, with its share.
 12. the offline export path, at full size: config 2 through
     ``Renderer.render_burst``, configs 3 and 4 through
     ``Renderer.render_sequence``.  Two renderers from equal state, one
@@ -155,9 +160,10 @@ Bounds (``bound_ms``): the larger of the bytes the function must move
 kernels ``renderbench.still_bytes``, counted on the run's planes, and
 ``encode_bytes``) over 3.35 TB/s and
 its operations over the card's peak for their type: float32 operations
-over 67 TFLOP/s, or, for the integer and control work of the trace and
-stall kernels, lane operations over the issue rate, 33.5 T a second
-(132 SMs x 4 schedulers x 32 lanes x 1.98 GHz).  The trace's operations
+over 67 TFLOP/s, or, for the integer and control work of the trace
+kernel, lane operations over the issue rate, 33.5 T a second (132 SMs x
+4 schedulers x 32 lanes x 1.98 GHz); the stall kernel, one block, over
+one SM's issue rate and shared memory (``stallbench.stall_bound``).  The trace's operations
 are counted from the function's definition over this run's counted
 steps and rays (``voxtracer_torch.app.tracebench``), the denoise's over
 the stencil's in-frame taps (``voxtracer_torch.app.denoisebench``).
@@ -192,7 +198,6 @@ from voxtracer_torch.app.renderbench import (  # noqa: E402
 from voxtracer_torch.app.tracebench import LANE_OPS_PER_S, bound  # noqa: E402
 
 WIDTH, HEIGHT = 1280, 720
-N_SMS = 132  # H100 SXM: LANE_OPS_PER_S is 132 SMs' issue rate
 WARMUP, BURSTS, FRAMES = 3, 3, 12
 BENCH_POS, BENCH_DIR = tracebench.BENCH_POS, tracebench.BENCH_DIR
 
@@ -266,29 +271,40 @@ def phase_build():
         f"r={r} {denoise.tile_plan(1080, 1920, r).shared_bytes}"
         for r in (1, 2, 4, 8)))
     assert sorted(report) == list(range(denoise.STATIC_RADII + 1)), report
+    stall = ptxas_entries(_build.build_log(), r"stall_kernelILi(\d)E")
+    say(1, "stall kernel instances (registers, spill bytes, static shared "
+           "bytes): " + ", ".join(f"{mode} {stall[str(i)]}" for i, mode in
+                                  enumerate(("static", "ser", "ind"))))
+    assert all(v[1] == 0 for v in stall.values()) and len(stall) == 3, stall
 
 
-def denoise_instances(log):
-    """ptxas's report of each instance of the denoise kernel in the
-    build log, by radius (0: the radius at run time): registers, spill
-    bytes (stores + loads) and static shared bytes."""
+def ptxas_entries(log, pattern):
+    """ptxas's report of each entry function in the build log whose
+    mangled name matches ``pattern``, keyed by the match's first group:
+    registers, spill bytes (stores + loads) and static shared bytes."""
     lines = log.splitlines()
     res = {}
     for i, line in enumerate(lines):
-        # the by-value entry's instances, denoise_kernel<R, false>
-        m = re.search(
-            r"Compiling entry function '\S*denoise_kernelILi(\d+)ELb0E", line)
+        m = re.search(r"Compiling entry function '\S*" + pattern, line)
         if not m:
             continue
         text = " ".join(lines[i + 1:i + 4])
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           text)
         smem = re.search(r"(\d+) bytes smem", text)
-        res[int(m.group(1))] = (
+        res[m.group(1)] = (
             int(re.search(r"Used (\d+) registers", text).group(1)),
             int(spill.group(1)) + int(spill.group(2)),
             int(smem.group(1)) if smem else 0)
     return res
+
+
+def denoise_instances(log):
+    """Each instance of the denoise kernel by radius (0: the radius at
+    run time): ``ptxas_entries`` of the by-value entry's instances,
+    denoise_kernel<R, false>."""
+    return {int(r): v for r, v in
+            ptxas_entries(log, r"denoise_kernelILi(\d+)ELb0E").items()}
 
 
 def phase_golden():
@@ -1519,66 +1535,76 @@ def phase_temporal_blend(smi, poses):
 
 
 def phase_stallbench(smi):
-    """The stall kernel against its plain version for every mode and
-    h in {1, 2, 4}, and the matrix's longest chains, at 64 trips; then
-    the default matrix through the CLI, and ser:1 against its plain
-    version at the CLI's trips.  Returns (launches of the CLI run,
-    kernel entry)."""
+    """The stall kernel against its plain version on
+    ``stallbench.check_cases()``; the default matrix through the CLI;
+    ser:1 and static:1 against their plain versions at the CLI's trips;
+    the bounds.  Returns (launches of the CLI run, kernel entry)."""
     from voxtracer_torch.app import stallbench
 
     tab, x = stallbench.make_inputs("cuda")
-    trips = 64
-    n_equal = 0
-    for mode, h, pre, mid in [(m, hh, 0, 0) for m in stallbench.MODES
-                              for hh in (1, 2, 4)] + [
-            ("ser", 2, 3, 5), ("ser", 1, 512, 0), ("ser", 1, 0, 256)]:
-        k, cycles = stallbench.run_cuda(tab, x, trips, mode, h, pre, mid)
-        p = stallbench.run_plain(tab, x, trips, mode, h, pre, mid)
+    cases = stallbench.check_cases()
+    for case in cases:
+        k, cycles = stallbench.run_cuda(tab, x, *case)
+        p = stallbench.run_plain(tab, x, *case)
         torch.cuda.synchronize()
-        assert torch.equal(k, p), (mode, h, pre, mid)
+        assert torch.equal(k, p), case
         assert int(cycles.item()) > 0
-        n_equal += 1
-    say(11, f"stallbench kernel == plain on {n_equal} cases at {trips} trips")
+    say(11, f"stallbench kernel == plain on {len(cases)} cases (every mode "
+            f"at h in 1, 2, 4, 8 and 64 trips, the longest chains, odd "
+            f"trips and sweeps)")
 
     stallbench.run_cuda.launches = 0
     rc, rows = run_captured(11, stallbench.main, ["--json"])
     launches = stallbench.run_cuda.launches
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
     assert rc == 0 and len(rows) == len(stallbench.default_cases())
     assert launches == len(rows) * 6, launches  # warm + 5 timed each
     assert all(r["cycles_per_trip"] > 0 for r in rows)
-    ser1 = next(r for r in rows
-                if (r["mode"], r["h"], r["pre"], r["mid"]) == ("ser", 1, 0, 0))
+    # the bound is the least time the card could take: no case beats it
+    assert all(r["share"] <= 1 for r in rows), [
+        (r["mode"], r["h"], r["pre"], r["mid"], r["share"]) for r in rows]
+    by = {(r["mode"], r["h"], r["pre"], r["mid"]): r for r in rows}
+    ser1, static1 = by[("ser", 1, 0, 0)], by[("static", 1, 0, 0)]
     default_trips = 16384
-    plain_out = []
-    p_ms = cuda_time(lambda: plain_out.append(stallbench.run_plain(
-        tab, x, default_trips, "ser", 1, 0, 0)), 1)
-    k, _ = stallbench.run_cuda(tab, x, default_trips, "ser", 1, 0, 0)
-    torch.cuda.synchronize()
-    assert torch.equal(k, plain_out[0]), "ser:1 at the CLI's trips"
+    plain_ms = {}
+    for mode in ("ser", "static"):
+        want = []
+        plain_ms[mode] = cuda_time(lambda: want.append(stallbench.run_plain(
+            tab, x, default_trips, mode, 1, 0, 0)), 1)
+        k, _ = stallbench.run_cuda(tab, x, default_trips, mode, 1, 0, 0)
+        torch.cuda.synchronize()
+        assert torch.equal(k, want[0]), f"{mode}:1 at the CLI's trips"
     summary = ", ".join(
         f"{r['mode']}:{r['h']}:{r['pre']}:{r['mid']} {r['cycles_per_trip']}"
         + (f" ({r['stall_cycles_per_handoff']}/handoff)"
            if "stall_cycles_per_handoff" in r else "")
         for r in rows)
     say(11, f"cycles per trip (stall cycles per handoff): {summary}; ser:1 "
-            f"kernel {ser1['ms']} ms, plain {p_ms:.1f} ms at {default_trips} "
-            f"trips, kernel == plain there; launches {launches} [{smi}]")
-    # ser:1 sweeps a 24-row window of the table per element each trip: a
-    # shared load and a select per row, 4096 elements.  Over the whole
-    # card's lanes, and over one SM's (the program it mirrors,
-    # voxtracer/app/stallbench.py:65, is one program, the kernel one
-    # block of 1024 threads on one SM)
-    nbytes = (256 * 128 + 2 * 32 * 128) * 4
-    ops = default_trips * 4096 * 2 * 24
-    bound_ms, bound_by = bound(nbytes, ops, LANE_OPS_PER_S)
-    one_sm_ms, _ = bound(nbytes, ops, LANE_OPS_PER_S / N_SMS)
-    say(11, f"ser:1 bound {bound_ms:.4f} ms over the card's lanes (share "
-            f"{bound_ms / ser1['ms']:.4f}), {one_sm_ms:.4f} ms over one SM's "
-            f"(share {one_sm_ms / ser1['ms']:.4f}) [{smi}]")
-    return launches, {"max_abs_err": 0.0, "ms": ser1["ms"], "plain_ms": p_ms,
-                      "bound_ms": bound_ms, "bound_by": bound_by,
-                      "bound_one_sm_ms": one_sm_ms,
-                      "share_one_sm": one_sm_ms / ser1["ms"]}
+            f"kernel {ser1['ms']} ms, plain {plain_ms['ser']:.1f} ms at "
+            f"{default_trips} trips, ser:1 and static:1 kernel == plain "
+            f"there; launches {launches}; SM clock after the matrix "
+            f"(current, max) {clock} [{smi}]")
+    # the bound counted from what the probe computes (stall_work), over
+    # one SM (the kernel is one block) and over the whole card; beside
+    # it, for comparison with the kernel's first, ladder-walking version,
+    # the old count of the TPU's ladder (a shared load and a select for
+    # each of 24 rows an element), no bound of this kernel's: its ratio
+    # to the time may exceed 1
+    bound_ms, bound_by, card_ms = stallbench.stall_bound(
+        default_trips, "ser", 1, 0, 0)
+    ladder_ms = default_trips * 4096 * 2 * 24 / (
+        LANE_OPS_PER_S / stallbench.N_SMS) * 1e3
+    say(11, f"one-SM bound, {bound_by}: ser:1 {bound_ms:.4f} ms (share "
+            f"{bound_ms / ser1['ms']:.4f}), static:1 {static1['bound_ms']} "
+            f"ms (share {static1['share']}); whole card {card_ms:.6f} ms; "
+            f"the ladder's count {ladder_ms:.4f} ms (count / time "
+            f"{ladder_ms / ser1['ms']:.4f}) [{smi}]")
+    return launches, {"max_abs_err": 0.0, "ms": ser1["ms"],
+                      "plain_ms": plain_ms["ser"], "bound_ms": bound_ms,
+                      "bound_by": bound_by, "static_ms": static1["ms"]}
 
 
 def phase_harness(smi):

@@ -831,17 +831,31 @@ def test_temporal_blend_cuda_resampler_equals_plain(cuda, d_pos):
     assert torch.equal(kc, torch.movedim(pc, 0, -1)) and torch.equal(kb, pb)
 
 
+@pytest.mark.parametrize("trips", [16, 37])
 @pytest.mark.parametrize(
     "case", ["static:1", "static:2:0:2", "ser:1", "ser:2:0:3", "ser:4:2:1",
-             "ind:2", "ind:4:1:2", "ser:1:512", "ser:1:0:256"])
-def test_stallbench_kernel_matches_plain(cuda, case):
+             "ind:2", "ind:4:1:2", "ser:1:512", "ser:1:0:256", "static:8",
+             "ser:8", "ind:8", "ind:4:512:256", "ser:3:1:2", "ind:5:2:1"])
+def test_stallbench_kernel_matches_plain(cuda, case, trips):
+    """Every mode at MAX_H, odd trip and sweep counts (the handoff's
+    buffers cycle by two; the static bases by the trip count mod 232)
+    and the longest chains."""
     mode, h, pre, mid = stallbench.parse_case(case)
     tab, x = stallbench.make_inputs(cuda)
-    out, cycles = stallbench.run_cuda(tab, x, 16, mode, h, pre, mid)
-    want = stallbench.run_plain(tab, x, 16, mode, h, pre, mid)
+    out, cycles = stallbench.run_cuda(tab, x, trips, mode, h, pre, mid)
+    want = stallbench.run_plain(tab, x, trips, mode, h, pre, mid)
     torch.cuda.synchronize()
     assert torch.equal(out, want)
     assert int(cycles.item()) > 0
+
+
+@pytest.mark.parametrize("mode", ["ser", "static"])
+def test_stallbench_kernel_matches_plain_at_the_cli_trips(cuda, mode):
+    tab, x = stallbench.make_inputs(cuda)
+    out, _ = stallbench.run_cuda(tab, x, 16384, mode, 1, 0, 0)
+    want = stallbench.run_plain(tab, x, 16384, mode, 1, 0, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
 
 
 def test_harness_config4_runs_the_resample_kernel(cuda, monkeypatch, capsys):

@@ -18,6 +18,13 @@ reduction, a shared-memory combine and a block barrier
 one handoff there.  Cycles come from ``clock64()`` read inside the
 kernel, times from CUDA events.
 
+Bound (``bound_ms``; ``share`` = bound / ms): the program is one block
+on one SM, so what the probe computes (:func:`stall_work`) over one
+SM's rates: its lane operations over one SM's issue rate (4 x 32 lanes
+at 1.98 GHz), its gathered table words over one SM's shared memory (128
+B a clock), whichever is larger.  ``bound_card_ms`` is the same work
+over the whole card's rates.
+
 * :func:`run_plain` — the kernel's computation in plain torch ops (the
   reference the kernel is held against; any device).
 * :func:`run_cuda` — the kernel; returns the tile and its cycle count.
@@ -38,12 +45,27 @@ import sys
 import numpy as np
 import torch
 
+from .tracebench import HBM_BYTES_PER_S, LANE_OPS_PER_S
+
 WIN = 24  # rows per serve window
 M_ROWS = 256  # serve-table rows
 TILE_H, TILE_W = 32, 128  # the tile the kernel computes
 MAX_H = 8  # sweeps per trip the kernel accepts
 A = 1103515245
 MODES = ("static", "ser", "ind")
+
+# One SM of the H100 SXM (LANE_OPS_PER_S is 132 SMs' issue rate): its
+# shared memory serves 32 banks x 4 bytes a clock at 1.98 GHz
+N_SMS = 132
+SMEM_BYTES_PER_S = 128 * 1.98e9
+
+# Lane operations of one element's sweep beyond its address, at the
+# least: the window test, its word's predicated load and predicated xor
+# (the masked address always lies in the table, so nothing else guards
+# the load).  A static base is known before the address: it folds into
+# the address's multiply-add and the window test is one compare; a base
+# from a minimum comes after, and the test is a subtract and a compare.
+SWEEP_OPS = {"static": 3, "ser": 4, "ind": 4}
 
 
 def make_inputs(device):
@@ -93,6 +115,57 @@ def _sweep(tab, waddr, base):
     return torch.where((off >= 0) & (off < WIN), g, 0)
 
 
+def stall_work(trips, mode, h, pre, mid):
+    """What the probe computes for the (32, 128) tile, as the least
+    number of lane operations (one-instruction steps: a multiply-add, a
+    mask, a compare, a load, a three-input minimum) that its definition
+    (``_make_kernel``; :func:`run_plain`) needs: ``ops``, and ``words``,
+    the table words its sweeps gather.
+
+    Per element and trip: each chain op ``v * A + c`` one multiply-add;
+    per sweep the address, two (the multiply-add ``x * 2 + 524 c`` or,
+    for ``ind``, ``(x >> 1) * (8 c + 4) + 524 c``, and the mask: 4 x the
+    address mod 2^17; ``ind`` shifts ``x`` once for all its sweeps
+    beyond the first), then ``SWEEP_OPS``, not the TPU's 24-row ladder;
+    the fold ``x ^ (y >> 16)``, two.  A minimum over the tile (``ser``,
+    ``ind``) takes half an operation an element, a three-input minimum
+    (``__vimin3_u32``, a DPX instruction of sm_90) taking in two;
+    ``ind``'s words xor into ``x`` as ``ser``'s do, its addresses all
+    known before.  Once: ``y``'s seed and the output's
+    sum.  The scalar base arithmetic and the loop are not counted.
+    ``words`` counts one word an element and sweep, more than the run's
+    data needs where an element lies outside the window; it never binds
+    (a word is 1/32 of one SM's shared-memory clock, the sweep's 5 or
+    more operations 5/128 or more of its issue clock)."""
+    n = TILE_H * TILE_W
+    chains = pre + mid * (1 if mode == "ind" else h)
+    addrs = 2 * h + int(mode == "ind" and h > 1)
+    per_elem = chains + addrs + h * SWEEP_OPS[mode] + 2
+    mins = 0 if mode == "static" else h * n // 2
+    return dict(ops=trips * (n * per_elem + mins) + 2 * n,
+                words=n * trips * h)
+
+
+def stall_bound(trips, mode, h, pre, mid):
+    """``(bound_ms, bound_by, bound_card_ms)``: the least time of
+    :func:`stall_work` on one SM (the kernel is one block), the larger
+    of its operations over one SM's issue rate (``"operations"``) and
+    its gathered words over one SM's shared memory (``"bytes"``); and
+    the same on the whole card, as if the work spread over its 132 SMs.
+    The table and the tile through device memory, once each, count too
+    (they never bind)."""
+    w = stall_work(trips, mode, h, pre, mid)
+    hbm_ms = (M_ROWS * 128 + 2 * TILE_H * TILE_W) * 4 / HBM_BYTES_PER_S * 1e3
+
+    def on(sms):
+        ops_ms = w["ops"] / (LANE_OPS_PER_S / N_SMS * sms) * 1e3
+        smem_ms = 4 * w["words"] / (SMEM_BYTES_PER_S * sms) * 1e3
+        return max((ops_ms, "operations"), (max(smem_ms, hbm_ms), "bytes"))
+
+    bound_ms, bound_by = on(1)
+    return bound_ms, bound_by, on(N_SMS)[0]
+
+
 def run_plain(tab, x, trips, mode, h, pre, mid):
     """The kernel's (32, 128) int32 output ``x + y`` with plain torch ops
     (the transcription of the reference's ``_make_kernel``)."""
@@ -136,6 +209,8 @@ def run_cuda(tab, x, trips, mode, h, pre, mid):
         raise ValueError(f"CUDA kernel given tensors on {tab.device}")
     if not (tab.is_contiguous() and x.is_contiguous()):
         raise ValueError("stallbench inputs must be contiguous")
+    if tab.data_ptr() % 16:
+        raise ValueError("the table must be 16-byte aligned (int4 loads)")
     from ..ops import _build
 
     launch = _build.load().vt_stall_launch
@@ -152,6 +227,21 @@ def run_cuda(tab, x, trips, mode, h, pre, mid):
 
 
 run_cuda.launches = 0
+
+
+def check_cases(trips=64):
+    """``(trips, mode, h, pre, mid)`` on which the kernel is held against
+    :func:`run_plain`: every mode at h in {1, 2, 4, 8}, the matrix's
+    longest chains, ``ind`` with long ones, odd trip and sweep counts
+    (the handoff's buffers cycle by two), and static past 232 trips (its
+    bases cycle by the trip count mod 232)."""
+    return ([(trips, mode, hh, 0, 0) for mode in MODES
+             for hh in (1, 2, 4, MAX_H)]
+            + [(trips, "ser", 2, 3, 5), (trips, "ser", 1, 512, 0),
+               (trips, "ser", 1, 0, 256), (trips, "ind", 4, 512, 256)]
+            + [(37, "ser", 3, 1, 2), (37, "ind", 5, 2, 1),
+               (37, "static", 7, 0, 3), (37, "ser", 1, 0, 0),
+               (241, "static", MAX_H, 0, 1)])
 
 
 def run_case(mode, h, pre, mid, trips, reps):
@@ -177,6 +267,27 @@ def run_case(mode, h, pre, mid, trips, reps):
         ms=round(best_ms, 4),
         cycles_per_trip=round(best_cycles / max(1, trips), 1),
     )
+
+
+def add_columns(rows, trips):
+    """Each row's bound and share (:func:`stall_bound` at ``trips``), and
+    for a ``ser`` or ``ind`` row its stall cycles against the static case
+    of its own (h, pre, mid), else ``static:1``'s, wherever in ``rows``
+    that case is."""
+    static_at = {(r["h"], r["pre"], r["mid"]): r["cycles_per_trip"]
+                 for r in rows if r["mode"] == "static"}
+    for r in rows:
+        key = (r["h"], r["pre"], r["mid"])
+        base = static_at.get(key) or static_at.get((1, 0, 0))
+        if r["mode"] != "static" and base is not None:
+            extra = r["cycles_per_trip"] - base
+            r["stall_cycles_total"] = round(extra, 1)
+            r["stall_cycles_per_handoff"] = round(extra / r["h"], 1)
+        bound_ms, bound_by, card_ms = stall_bound(trips, r["mode"], *key)
+        r.update(bound_ms=round(bound_ms, 4), bound_by=bound_by,
+                 share=round(bound_ms / r["ms"], 4),
+                 bound_card_ms=round(card_ms, 6))
+    return rows
 
 
 def parse_case(text):
@@ -227,22 +338,15 @@ def main(argv=None):
 
     # every case first, so that each is compared with the static case of
     # its own (h, pre, mid) wherever the matrix has one, in any order
-    rows = [run_case(mode, h, pre, mid, args.trips, args.reps)
-            for mode, h, pre, mid in cases]
-    static_at = {(r["h"], r["pre"], r["mid"]): r["cycles_per_trip"]
-                 for r in rows if r["mode"] == "static"}
+    rows = add_columns([run_case(mode, h, pre, mid, args.trips, args.reps)
+                        for mode, h, pre, mid in cases], args.trips)
     for r in rows:
-        key = (r["h"], r["pre"], r["mid"])
-        base = static_at.get(key) or static_at.get((1, 0, 0))
-        if r["mode"] != "static" and base is not None:
-            extra = r["cycles_per_trip"] - base
-            r["stall_cycles_total"] = round(extra, 1)
-            r["stall_cycles_per_handoff"] = round(extra / r["h"], 1)
         print(json.dumps(r) if args.json else r, flush=True)
     if not args.json:
         print(f"\ncycles/handoff = (mode cycles/trip - matching static) / h; "
               f"cycles from clock64() in the kernel on "
-              f"{torch.cuda.get_device_name(0)}")
+              f"{torch.cuda.get_device_name(0)}; bound over one SM's "
+              f"issue and shared memory, share = bound / ms")
     return 0
 
 
