@@ -144,6 +144,25 @@ Phases (each prints one line; any failure raises and exits non-zero):
     calls of the wrapper (the earlier yardstick), the plain version's,
     the bound on the run's data and the fixed one, their shares, and
     the share of miss pixels.
+20. (after 18) the row-slab mesh (``voxtracer_torch.parallel``) on
+    ``["cuda:0"] * n``: configs 2 (menger 1280x720 at the bench camera),
+    3 (chr_knight 1280x720 orbit) and 4 (monu9 1920x1080 dolly r=2) in
+    4 contiguous slabs, config 3 in 3 (uneven), config 4 in the cyclic
+    layout (1080 rows: the last device's bands cut at the image's edge),
+    a ragged 333x187 in 8 slabs at r = 2 and a 64-row frame in 16 slabs
+    at r = 8 (a halo taller than a slab): 4 frames each (the first
+    still, then along the path) against the one-device ``render_frame``
+    loop from the same state: image, node, depth, linear, the other
+    outputs and the final state bit-equal; each kernel's launches
+    (zeroed before the slab frames, read after) equal to slabs x frames
+    of its stage.  Then, for the five full-size cases, ms/frame of the
+    one-device frame and of the slab path in turns (one-device, slabs,
+    slabs, one-device), bursts of 8 after 8 warm frames, CUDA events,
+    and the row blocks the slab path copies a frame (windows, history,
+    resort) and how many of them device to device.  The card count is printed; on
+    more than one card, configs 3, 4 (cyclic) and the ragged case run
+    on the distinct devices too.  Records, not gates: slabs on one card
+    only add launches.
 
 Then (phase 15) checks that no module of the JAX package
 (``voxtracer``), JAX or Triton was imported, prints the per-kernel JSON
@@ -151,7 +170,8 @@ line (the five ported TPU kernels and the frame epilogue's two, which
 replace an XLA fusion and no ``pallas_call``: each kernel's launches,
 error, times, bound and share of it,
 launches per frame of each config that ran it, its launches on phase
-12's sequences and per frame of phase 16's viewer loop, and the time of
+12's sequences, per frame of phase 16's viewer loop and on each of
+phase 20's slab cases (``mesh_launches``), and the time of
 one PyTorch call computing the same function, where there is one), then
 the device line last.
 
@@ -206,8 +226,11 @@ BENCH_POS, BENCH_DIR = tracebench.BENCH_POS, tracebench.BENCH_DIR
 TEMPORAL_FLOPS_PER_PX = 200
 RESAMPLE_FLOPS_PER_PX_PLANE = 9
 
-# the kernels that render_sequence / render_burst replay
+# the kernels that render_sequence / render_burst replay; the slab path
+# (phase 20) runs the same
 SEQUENCE_KERNELS = ("trace", "temporal", "denoise", "epilogue", "encode")
+# phase 20: frames held against the one-device frames, frames a burst
+MESH_FRAMES, MESH_BURST = 4, 8
 
 
 def say(phase, msg):
@@ -2016,6 +2039,188 @@ def whitted_sky(cam, w, h):
     return whitted.render_scene(empty, cam, w, h, device="cpu")
 
 
+def mesh_path(scene_name, path_name, w, h):
+    """The cameras of a path: frame i at ``path(i / 30)``; config 2's
+    still camera is the bench camera."""
+    from voxtracer_torch.app import camera_paths
+    from voxtracer_torch.engine.camera import Camera
+    from voxtracer_torch.engine.scene import load_scene
+
+    scene = load_scene(scene_name)
+    if path_name == "bench":
+        cam = Camera(position=np.array(BENCH_POS),
+                     direction=np.array(BENCH_DIR))
+        return scene, lambda i: cam.rows(w, h)
+    along = camera_paths.PATHS[path_name](scene)
+    return scene, lambda i: along(i / 30.0).rows(w, h)
+
+
+def mesh_case(label, scene_name, path_name, w, h, radius, devices, layout,
+              smi, timed):
+    """Phase 20, one case: ``MESH_FRAMES`` frames of the slab path
+    (``voxtracer_torch.parallel``) on ``devices`` against the one-device
+    ``render_frame`` loop from the same state: image, node, depth,
+    linear and the final state bit-equal, every kernel launched once a
+    slab and stage (the counters zeroed just before the slab frames and
+    read just after).  Where ``timed``, ms/frame of both in turns
+    (one-device, slabs, slabs, one-device) over bursts continuing along
+    the path, and the row blocks the slab path copies a frame (windows,
+    history, resort; a slab's own rows included) and how many of them
+    crossed devices.  Returns the slab frames' launch counts."""
+    from voxtracer_torch.engine.params import (
+        DenoiseParams,
+        RenderParams,
+        TemporalParams,
+    )
+    from voxtracer_torch.engine.pipeline import (
+        STATE_PLANES,
+        camera_moved,
+        init_state,
+        render_frame,
+    )
+    from voxtracer_torch.engine.scene import SceneTables
+    from voxtracer_torch.ops.noise import blue_noise_buffer
+    from voxtracer_torch.parallel import (
+        gather_state,
+        make_mesh,
+        scene_device_args,
+        sharded_render_frame,
+    )
+
+    scene, cam_at = mesh_path(scene_name, path_name, w, h)
+    mesh = make_mesh(devices)
+    n = len(mesh)
+    params = (RenderParams(), TemporalParams(), DenoiseParams())
+    home = mesh[0]
+    tables = SceneTables(scene, home)
+    noise = torch.from_numpy(blue_noise_buffer()).to(home)
+    fn, place = sharded_render_frame(mesh, height=h, width=w, radius=radius,
+                                     layout=layout)
+    m_tables, m_noise = scene_device_args(scene, mesh)
+    one = init_state(h, w, home)
+    slabs = place(one)
+    kernels = frame_kernels()
+    frame = 0
+    moving = 0
+
+    def one_frame(state, lean):
+        return render_frame(state, tables, noise, cam_at(frame), *params,
+                            frame + 1, h, w, radius=radius, lean=lean)
+
+    def slab_frame(state, lean):
+        return fn(state, m_tables, m_noise, cam_at(frame), *params,
+                  frame + 1, lean=lean)
+
+    def same(a, b):
+        return all(torch.equal(x.to(home), y.to(home)) for x, y in zip(a, b))
+
+    counts = {name: 0 for name in kernels}
+    for _ in range(MESH_FRAMES):
+        moving += bool(one["history_valid"]
+                       and camera_moved(one, cam_at(frame)))
+        one, want = one_frame(one, False)
+        for k in kernels.values():
+            k.launches = 0
+        slabs, got = slab_frame(slabs, False)
+        for name, k in kernels.items():
+            counts[name] += k.launches
+        frame += 1
+        assert set(got) == set(want), (set(got), set(want))
+        assert same([got[k] for k in want], [want[k] for k in want]), [
+            k for k in want if not torch.equal(got[k].to(home), want[k])]
+    whole = gather_state(slabs, home)
+    assert same([whole[k] for k in STATE_PLANES],
+                [one[k] for k in STATE_PLANES])
+    assert np.array_equal(whole["old_cam"], one["old_cam"])
+    frames = MESH_FRAMES
+    expect = {"trace": n * frames, "temporal": n * moving,
+              "denoise": n * frames if radius else 0, "resample": 0,
+              "stall": 0, "epilogue": n * (frames - moving),
+              "encode": n * (frames if radius else moving)}
+    assert counts == expect, (counts, expect)
+    img = want["image"].float()
+    assert float(img.std()) > 1.0
+    say(20, f"{label} {w}x{h} {path_name} r={radius}, {n} {layout} slabs on "
+            f"{sorted({str(d) for d in mesh})}: {frames} frames ({moving} "
+            f"moving with history) == the one-device frames (image, node, "
+            f"depth, linear, trace colour, normal, albedo, rays, state); "
+            f"launches {counts} = slabs x frames of each stage")
+    if not timed:
+        return counts
+    ms = {"one device": [], "slabs": []}
+
+    def burst(mode):
+        nonlocal one, slabs, frame
+        for _ in range(MESH_BURST):
+            if mode == "slabs":
+                slabs, _ = slab_frame(slabs, True)
+            else:
+                one, _ = one_frame(one, True)
+            frame += 1
+
+    for mode in ("one device", "slabs", "slabs", "one device"):
+        burst(mode)  # warm: the frames before the timed ones
+        torch.cuda.synchronize()
+        if mode == "slabs":
+            fn.count.reset()
+        ms[mode].append(cuda_time(lambda: burst(mode), 1) / MESH_BURST)
+    per = MESH_BURST
+    say(20, f"{label}: ms/frame in turns (one device, slabs, slabs, one "
+            f"device), bursts of {MESH_BURST} after {MESH_BURST} warm "
+            f"frames: one device "
+            + ", ".join(f"{t:.4f}" for t in ms["one device"]) + "; slabs "
+            + ", ".join(f"{t:.4f}" for t in ms["slabs"])
+            + f"; row blocks copied a frame (windows, history, resort; own "
+            f"rows included) {fn.count.copies / per:g}, "
+            f"{fn.count.bytes / per / 2**20:.3f} MiB, of them "
+            f"{fn.count.peer / per:g} device-to-device [{smi}]")
+    return counts
+
+
+def phase_mesh(smi):
+    """Phase 20: the row-slab mesh (``voxtracer_torch.parallel``) on
+    ``["cuda:0"] * n``: configs 2, 3 and 4 at full size, config 3 also at
+    n = 3 (uneven slabs), config 4 also cyclic (1080 rows: no multiple of
+    4 bands of 16), a ragged 333x187 at n = 8 r = 2 and a 64-row frame at
+    n = 16 r = 8 (a halo taller than a slab); each against the
+    one-device frames.  On a host with more than one card, the same on
+    distinct devices.  Returns each case's launch counts."""
+    count = torch.cuda.device_count()
+    one_card = ["cuda:0"]
+    say(20, f"CUDA devices: {count}")
+    cases = {
+        "config 2": ("config 2: menger", "menger", "bench", 1280, 720, 0, 4,
+                     "contiguous", True),
+        "config 3": ("config 3: chr_knight", "chr_knight", "orbit", 1280, 720,
+                     0, 4, "contiguous", True),
+        "config 3 n=3": ("config 3: chr_knight", "chr_knight", "orbit", 1280,
+                         720, 0, 3, "contiguous", True),
+        "config 4": ("config 4: monu9", "monu9", "dolly", 1920, 1080, 2, 4,
+                     "contiguous", True),
+        "config 4 cyclic": ("config 4: monu9", "monu9", "dolly", 1920, 1080,
+                            2, 4, "cyclic", True),
+        "ragged": ("ragged: chr_knight", "chr_knight", "orbit", 333, 187, 2,
+                   8, "contiguous", False),
+        "tall halo": ("tall halo: chr_knight", "chr_knight", "orbit", 128, 64,
+                      8, 16, "contiguous", False),
+    }
+    launches = {}
+    for key, (label, scene, path, w, h, r, n, layout, timed) in cases.items():
+        launches[key] = mesh_case(label, scene, path, w, h, r, one_card * n,
+                                  layout, smi, timed)
+    if count > 1:
+        devices = [f"cuda:{i}" for i in range(count)]
+        for key, (label, scene, path, w, h, r, _, layout, _) in (
+                ("config 3 distinct", cases["config 3"]),
+                ("config 4 cyclic distinct", cases["config 4 cyclic"]),
+                ("ragged distinct", cases["ragged"])):
+            launches[key] = mesh_case(label, scene, path, w, h, r, devices,
+                                      layout, smi, key != "ragged distinct")
+    else:
+        say(20, "one card: the distinct-device cases did not run")
+    return launches
+
+
 def check_no_jax_package():
     """The run imported nothing of the JAX package, JAX or Triton."""
     bad = sorted(m for m in sys.modules
@@ -2061,6 +2266,7 @@ def main():
     viewer_per_frame, viewer_err = phase_interactive(smi)
     phase_reload(smi)
     phase_whitted(smi)
+    mesh = phase_mesh(smi)
     check_no_jax_package()
     # The trace's and the still epilogue's launches come from the main
     # path (config 2, phase 4), the trace's times and bound too, the
@@ -2094,6 +2300,11 @@ def main():
         assert (total > 0) == (name in SEQUENCE_KERNELS), (name, total)
         # phase 16's web viewer loop, chr_knight 640x360 r=2
         entries[name]["viewer_launches_per_frame"] = viewer_per_frame[name]
+        # phase 20's slab frames, each case's counts read around them
+        entries[name]["mesh_launches"] = {
+            case: counts[name] for case, counts in mesh.items()}
+        total = sum(entries[name]["mesh_launches"].values())
+        assert (total > 0) == (name in SEQUENCE_KERNELS), (name, total)
     for name in ("trace", "temporal", "denoise", "stall", "epilogue",
                  "encode"):
         entries[name]["library_ms"] = None  # no one PyTorch call computes it
@@ -2119,7 +2330,8 @@ def main():
                    "voxtracer/ops/tonemap.py:37)"),
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "launches_per_frame", "sequence_launches", "library_ms")
+            "launches_per_frame", "sequence_launches", "mesh_launches",
+            "library_ms")
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name],

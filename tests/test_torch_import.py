@@ -52,9 +52,25 @@ def test_port_imports_neither_jax_nor_triton():
     for name in ("io.vox", "io.image", "scene.grid", "scene.procedural",
                  "native", "oracle.renderer", "ops.noise", "utils.log",
                  "utils.timing", "io.f32zip", "engine.snapshot",
-                 "engine.reload", "utils.fetch", "scene.octree"):
+                 "engine.reload", "utils.fetch", "scene.octree",
+                 "parallel", "parallel.mesh"):
         assert f"voxtracer_torch.{name}" in res["modules"]
     assert res["bad"] == []
+
+
+def test_make_mesh_defaults_to_the_cuda_devices(monkeypatch):
+    """``make_mesh()`` is every CUDA device, and raises without one."""
+    import torch
+
+    from voxtracer_torch.parallel import make_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert make_mesh() == (torch.device("cuda", 0), torch.device("cuda", 1))
+    assert make_mesh(["cpu"] * 3) == (torch.device("cpu"),) * 3
 
 
 class _Parsed(Exception):

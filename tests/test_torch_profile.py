@@ -100,3 +100,44 @@ def test_frame_activities_refuse_a_range_that_misses_a_frame(monkeypatch):
     with pytest.raises(RuntimeError, match=r"launched \*trace_kernel\* "
                                            r"\[2, 2, 2\] times"):
         profile.frame_activities(lambda: None, None, 3)
+
+
+def test_profile_takes_the_reference_usage_line(capsys, tmp_path,
+                                                monkeypatch):
+    """The reference's command line (``voxtracer/app/profile.py``'s
+    usage: ``--static``, ``--top N``, ``--keep DIR``) parses and runs on
+    the CPU: ``--top 3`` prints 3 activity rows (the CPU trace holds no
+    device activity, so its host ops stand in for them here) and the
+    trace stays in DIR."""
+    monkeypatch.setattr(
+        profile, "device_activities",
+        lambda events: [e for e in events if e.name != profile.RANGE])
+    keep = tmp_path / "trace"
+    assert profile.main(["--scene", "menger", "--size", "64x36",
+                         "--denoise-radius", "0", "--static", "--frames",
+                         "2", "--top", "3", "--keep", str(keep),
+                         "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "menger 64x36 static r=0, 2 frames profiled" in out
+    assert sum(" ms/frame " in ln and ln.startswith("  ")
+               for ln in out.splitlines()) == 3
+    assert (keep / "trace.json").stat().st_size > 0
+
+
+def test_profile_defaults_are_the_reference_ones(monkeypatch):
+    import argparse
+
+    parse = argparse.ArgumentParser.parse_args
+    seen = []
+
+    def parse_and_stop(self, args=None, namespace=None):
+        seen.append(parse(self, args, namespace))
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", parse_and_stop)
+    with pytest.raises(KeyboardInterrupt):
+        profile.main([])
+    a = seen[0]
+    assert (a.scene, a.size, a.denoise_radius, a.frames, a.path, a.static,
+            a.top, a.keep, a.device) == (
+        "menger", "1280x720", 0, 4, "dolly", False, 20, None, "cuda")

@@ -1,8 +1,19 @@
 """Where a frame's device time goes: frames of a camera path under
 ``torch.profiler``.
 
-    python -m voxtracer_torch.app.profile --scene monu9 --size 1920x1080 \\
-        --path dolly --denoise-radius 2
+    python -m voxtracer_torch.app.profile [--scene menger] [--size 1280x720] \\
+        [--denoise-radius 0] [--static] [--frames 4] [--top 20] [--keep DIR]
+
+The reference's command line (``voxtracer.app.profile``) with its
+defaults: menger at 1280x720, radius 0, 4 frames along the dolly path,
+or at ``camera_paths.static``'s pose with ``--static``; ``--top N``
+prints the N activities with the most device time, ``--keep DIR``
+leaves the profiled range's trace in ``DIR/trace.json``.  The port adds
+``--path`` (any camera path; ``--static`` is ``--path static``),
+``--warmup``, ``--batch`` and ``--device`` (``cuda`` unless the caller
+asks for the CPU).  Its warm-up renders ``--warmup`` frames (3, rounded
+up to whole batches: a ``render_sequence`` warm-up captures the graphs)
+where the reference renders 2.
 
 With ``--batch N`` the frames go through ``Renderer.render_sequence``,
 N a call (on the card: replays of its captured CUDA graphs), instead of
@@ -156,14 +167,20 @@ def main(argv=None) -> int:
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter,
     )
-    p.add_argument("--scene", default="monu9")
-    p.add_argument("--size", default="1920x1080", help="WIDTHxHEIGHT")
+    p.add_argument("--scene", default="menger")
+    p.add_argument("--size", default="1280x720", help="WIDTHxHEIGHT")
     p.add_argument("--path", default="dolly",
                    choices=sorted(camera_paths.PATHS))
-    p.add_argument("--denoise-radius", type=int, default=2)
+    p.add_argument("--static", action="store_true",
+                   help="hold the camera still (--path static)")
+    p.add_argument("--denoise-radius", type=int, default=0)
     p.add_argument("--fps-target", type=float, default=30.0)
     p.add_argument("--warmup", type=int, default=3)
-    p.add_argument("--frames", type=int, default=12)
+    p.add_argument("--frames", type=int, default=4)
+    p.add_argument("--top", type=int, default=20,
+                   help="activity rows printed, by device time")
+    p.add_argument("--keep", metavar="DIR", default=None,
+                   help="keep the profiled range's trace as DIR/trace.json")
     p.add_argument("--batch", type=int, default=1,
                    help="frames a render_sequence call; 1: render() a frame")
     p.add_argument("--device", default="cuda")
@@ -173,6 +190,10 @@ def main(argv=None) -> int:
                          f"{args.batch}")
 
     width, height = (int(v) for v in args.size.lower().split("x"))
+    if args.top < 0:
+        raise SystemExit(f"--top {args.top} is negative")
+    if args.static:
+        args.path = "static"
     scene = load_scene(args.scene)
     path = camera_paths.PATHS[args.path](scene)
     cams = (path(i / args.fps_target) for i in itertools.count())
@@ -192,7 +213,8 @@ def main(argv=None) -> int:
     advance(-(-args.warmup // args.batch) * args.batch)
     _sync(r.device)
 
-    wall_us, dev, busy_us = profile_range(lambda: advance(n), r.device)
+    wall_us, dev, busy_us = profile_range(lambda: advance(n), r.device,
+                                          args.keep)
     wall_ms = wall_us / 1e3 / n
     busy_ms = busy_us / 1e3 / n
     label = (f"{args.scene} {width}x{height} {args.path} "
@@ -201,7 +223,7 @@ def main(argv=None) -> int:
     print(f"{label} profiled: wall {wall_ms:.4f} ms/frame, device "
           f"{busy_ms:.4f} ms/frame, busy share {busy_ms / wall_ms:.4f}, "
           f"{len(dev) / n:.1f} device activities/frame")
-    for name, ns, count in activity_rows(dev):
+    for name, ns, count in activity_rows(dev)[:args.top]:
         print(f"  {ns / 1e6 / n:9.4f} ms/frame {count / n:5.1f}/frame  "
               f"{name[:100]}")
 
@@ -220,6 +242,8 @@ def main(argv=None) -> int:
     print(f"{label} unprofiled: {frame_ms:.4f} ms/frame; profiled device "
           f"time over it (estimate of the busy share) "
           f"{busy_ms / frame_ms:.4f}")
+    if args.keep:
+        print(f"trace kept in {os.path.join(args.keep, 'trace.json')}")
     return 0
 
 

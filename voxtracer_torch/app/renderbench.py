@@ -30,6 +30,16 @@ path the two see other positions, so compare each across trees.
 Without ``--compare``, one process measures ``--tree`` (default: the
 tree this file is in).
 
+    python voxtracer_torch/app/renderbench.py --kernels [--compare OTHER]
+
+times the trace, temporal, denoise and still epilogue kernels of each
+tree at one device, on the main path's inputs (:func:`kernel_cases`):
+one JSON line a case, the kernel's ms on the device alone (20 launches
+replayed from a CUDA graph) and over 20 eager calls.  These kernels
+take a slab's rows (``voxtracer_torch/parallel/mesh.py``); the
+one-device calls leave those arguments at their defaults, so trees
+without them run the same cases.
+
     python voxtracer_torch/app/renderbench.py --epilogue [--compare OTHER]
 
 times the frame epilogue's two kernels (``csrc/epilogue.cu``) of each
@@ -403,6 +413,103 @@ def epilogue_cases(seed=19):
     return cases
 
 
+def kernel_cases():
+    """The four frame kernels that take a slab's rows, each at one
+    device (the slab arguments at their defaults) on its main path's
+    inputs: ``(kernel, case, fn)``, ``fn`` a call of the wrapper with
+    its arguments by position (as a tree without the slab arguments
+    takes them).  The trace on menger 1280x720 at the bench camera
+    (config 2) and on monu9 1920x1080 at the dolly's pose t = 1 + 1/30
+    (config 4); at that pose, over frame t = 1's history (random old
+    blends), the reprojecting blend, the r = 2 denoise of its output
+    and, as if still, the still epilogue; the still epilogue of the
+    720p frame too (history valid)."""
+    import numpy as np
+    import torch
+    from voxtracer_torch.app import camera_paths
+    from voxtracer_torch.app.tracebench import BENCH_DIR, BENCH_POS
+    from voxtracer_torch.engine.camera import Camera
+    from voxtracer_torch.engine.params import (
+        DenoiseParams,
+        RenderParams,
+        TemporalParams,
+        pack_denoise_params,
+        pack_frame_rows,
+        pack_temporal_params,
+        pack_trace_params,
+    )
+    from voxtracer_torch.engine.scene import SceneTables, load_scene
+    from voxtracer_torch.ops import denoise, epilogue, temporal, trace
+    from voxtracer_torch.ops.noise import blue_noise_buffer
+
+    noise = torch.from_numpy(blue_noise_buffer()).cuda()
+    rng = np.random.default_rng(23)
+    cases = []
+
+    def traced(tables, rows, w, h, frame):
+        args = (tables, pack_trace_params(rows, RenderParams()), noise, frame,
+                h, w)
+        return args, trace.render_sample_cuda(*args)
+
+    def row_of(rows, old_rows):
+        return pack_frame_rows([rows], old_rows, True, 2, RenderParams(),
+                               TemporalParams(), DenoiseParams())[0]
+
+    menger = SceneTables(load_scene("menger"), "cuda")
+    rows = Camera(position=np.array(BENCH_POS),
+                  direction=np.array(BENCH_DIR)).rows(1280, 720)
+    _, old = traced(menger, rows, 1280, 720, 1)
+    args, new = traced(menger, rows, 1280, 720, 2)
+    cases.append(("trace", "config 2 menger 1280x720 bench camera",
+                  lambda a=args: trace.render_sample_cuda(*a)))
+    still = (new["color"], new["normal"], new["depth"], old["color"],
+             torch.from_numpy(rng.uniform(0.02, 1.0, (720, 1280)).astype(
+                 np.float32)).cuda(), old["depth"], new["albedo"],
+             row_of(rows, rows))
+    cases.append(("still epilogue", "config 2 menger 1280x720, history "
+                  "valid", lambda a=still: epilogue.still_epilogue_cuda(*a)))
+
+    monu9 = load_scene("monu9")
+    dolly = camera_paths.dolly(monu9)
+    tables = SceneTables(monu9, "cuda")
+    w, h = 1920, 1080
+    old_rows, rows = dolly(1.0).rows(w, h), dolly(1.0 + 1 / 30).rows(w, h)
+    _, old = traced(tables, old_rows, w, h, 1)
+    args, new = traced(tables, rows, w, h, 2)
+    cases.append(("trace", "config 4 monu9 1920x1080 dolly t=1+1/30",
+                  lambda a=args: trace.render_sample_cuda(*a)))
+    planes = (new["color"], new["normal"], new["depth"], old["color"],
+              torch.from_numpy(rng.uniform(0.02, 0.9, (h, w)).astype(
+                  np.float32)).cuda(), old["depth"])
+    tp = pack_temporal_params(rows, old_rows, TemporalParams(), True)
+    cases.append(("temporal", "config 4 monu9 1920x1080 dolly t=1 to "
+                  "1+1/30", lambda: temporal.temporal_blend_reproject_cuda(
+                      *planes, tp)))
+    blended, _ = temporal.temporal_blend_reproject_cuda(*planes, tp)
+    den = (blended, new["normal"], new["depth"], new["albedo"], new["node"],
+           pack_denoise_params(rows, DenoiseParams()), 2)
+    cases.append(("denoise", "config 4 monu9 1920x1080 r=2",
+                  lambda: denoise.denoise_cuda(*den)))
+    row = row_of(rows, old_rows)
+    cases.append(("still epilogue", "config 4 monu9 1920x1080, history "
+                  "valid", lambda: epilogue.still_epilogue_cuda(
+                      *planes, new["albedo"], row)))
+    return cases
+
+
+def measure_kernels(tree: str, label: str):
+    """The four frame kernels of ``tree`` on :func:`kernel_cases`, one
+    JSON line a case: ms on the device alone (``graph_ms``: 20 launches
+    captured into a CUDA graph, replayed back to back) and over 20 eager
+    calls of the wrapper (``eager_ms``)."""
+    sys.path.insert(0, tree)
+    smi = _smi()
+    for kernel, case, fn in kernel_cases():
+        print(json.dumps({"tree": label, "kernel": kernel, "case": case,
+                          "ms": graph_ms(fn), "eager_ms": eager_ms(fn),
+                          "device": smi}), flush=True)
+
+
 def _smi():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -525,9 +632,17 @@ def main(argv=None) -> int:
     p.add_argument("--compare", metavar="OTHER_TREE", nargs="+")
     p.add_argument("--epilogue", action="store_true",
                    help="time the epilogue kernels instead of the configs")
+    p.add_argument("--kernels", action="store_true",
+                   help="time the trace, temporal, denoise and still "
+                        "epilogue kernels at one device instead")
     args = p.parse_args(argv)
+    mode = (["--epilogue"] if args.epilogue else []) + (
+        ["--kernels"] if args.kernels else [])
+    if len(mode) > 1:
+        raise SystemExit("--epilogue and --kernels exclude each other")
     if not args.compare:
-        run = measure_epilogue if args.epilogue else measure
+        run = (measure_epilogue if args.epilogue
+               else measure_kernels if args.kernels else measure)
         run(os.path.abspath(args.tree), args.label)
         return 0
     others = [(os.path.abspath(t), os.path.basename(os.path.abspath(t)))
@@ -536,7 +651,7 @@ def main(argv=None) -> int:
                         *others[::-1]):
         subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--tree", tree,
-             "--label", label, *(["--epilogue"] if args.epilogue else [])],
+             "--label", label, *mode],
             check=True)
     return 0
 

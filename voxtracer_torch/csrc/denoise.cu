@@ -57,6 +57,15 @@
 // The launch geometry comes from the wrapper (ops/denoise.py
 // `tile_plan`); the launcher checks it against the constants below.
 //
+// Slabs.  A row-sharded frame (voxtracer_torch/parallel/mesh.py) runs
+// the stencil over a window: its slab and up to r rows of each neighbour
+// around it, image rows row0 .., then keeps the slab's rows, which tap
+// nothing beyond the window (the TPU kernel's top_halo / bot_halo,
+// denoise_pallas.py:297-370).  A window edge inside the image pads with
+// zeros like the image's edge, but no kept row reads it; so the kernel
+// only needs the window's first image row for its pixel rays (the
+// depth-bias term), by value.  One device: row0 0.
+//
 // Parameters.  The sigmas, the albedo factor and the factor_dist table
 // are constant over a camera path and always come by value.  The camera
 // rows come by value too, or, in the row-reading entries (ROW), from a
@@ -196,7 +205,7 @@ denoise_kernel(
     const Params<R> P, const float* __restrict__ colors,
     const float* __restrict__ normal, const float* __restrict__ depth,
     const float* __restrict__ albedo, const int* __restrict__ node,
-    int height, int width, int radius, float* __restrict__ out) {
+    int height, int width, int row0, int radius, float* __restrict__ out) {
     extern __shared__ float tile[];
     const int r = R > 0 ? R : radius;
     const int tw = TILE_X + 2 * r, th = TILE_Y + 2 * r;
@@ -231,7 +240,7 @@ denoise_kernel(
     #pragma unroll
     for (int j = 0; j < ROWS; ++j) {
         const int y = blockIdx.y * TILE_Y + ty + j;
-        const float pyf = (float)y;
+        const float pyf = (float)(row0 + y);
         float rx = pxf * c[3] - pyf * c[6] + c[9];
         float ry = pxf * c[4] - pyf * c[7] + c[10];
         float rz = pxf * c[5] - pyf * c[8] + c[11];
@@ -306,7 +315,7 @@ __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y) denoise_global_kernel(
     const Params<1> P, const float* __restrict__ colors,
     const float* __restrict__ normal, const float* __restrict__ depth,
     const float* __restrict__ albedo, const int* __restrict__ node,
-    int height, int width, int radius, float* __restrict__ out) {
+    int height, int width, int row0, int radius, float* __restrict__ out) {
     const float* p = P.p;
     const float* c = ROW ? c_camera : P.p;
     const int x = blockIdx.x * BLOCK_X + threadIdx.x;
@@ -314,7 +323,7 @@ __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y) denoise_global_kernel(
     if (x >= width || y >= height) return;
     const size_t plane = (size_t)height * width;
     const size_t o = (size_t)y * width + x;
-    const float pxf = (float)x, pyf = (float)y;
+    const float pxf = (float)x, pyf = (float)(row0 + y);
 
     float rx = pxf * c[3] - pyf * c[6] + c[9];
     float ry = pxf * c[4] - pyf * c[7] + c[10];
@@ -385,8 +394,8 @@ struct Planes {
 
 template <int R, bool ROW>
 cudaError_t launch(const float* params_host, const float* fdist_host,
-                   const Planes& g, int height, int width, int radius,
-                   dim3 grid, int shared, cudaStream_t stream) {
+                   const Planes& g, int height, int width, int row0,
+                   int radius, dim3 grid, int shared, cudaStream_t stream) {
     // above 48 KB a block's dynamic shared memory needs the attribute;
     // set once per instance, for its largest tile
     static const cudaError_t attr = cudaFuncSetAttribute(
@@ -398,35 +407,35 @@ cudaError_t launch(const float* params_host, const float* fdist_host,
     memcpy(P.fdist, fdist_host, sizeof(float) * (2 * radius + 1) * (2 * radius + 1));
     denoise_kernel<R, ROW><<<grid, dim3(BLOCK_X, BLOCK_Y), shared, stream>>>(
         P, g.colors, g.normal, g.depth, g.albedo, g.node, height, width,
-        radius, g.out);
+        row0, radius, g.out);
     return cudaGetLastError();
 }
 
 template <bool ROW>
 cudaError_t launch_global(const float* params_host, const Planes& g,
-                          int height, int width, int radius, dim3 grid,
-                          cudaStream_t stream) {
+                          int height, int width, int row0, int radius,
+                          dim3 grid, cudaStream_t stream) {
     Params<1> P = {};
     memcpy(P.p, params_host, sizeof(P.p));
     denoise_global_kernel<ROW><<<grid, dim3(BLOCK_X, BLOCK_Y), 0, stream>>>(
         P, g.colors, g.normal, g.depth, g.albedo, g.node, height, width,
-        radius, g.out);
+        row0, radius, g.out);
     return cudaGetLastError();
 }
 
 template <bool ROW>
 cudaError_t launch_instance(int instance, const float* params_host,
                             const float* fdist_host, const Planes& g,
-                            int height, int width, int radius, dim3 grid,
-                            int shared, cudaStream_t stream) {
+                            int height, int width, int row0, int radius,
+                            dim3 grid, int shared, cudaStream_t stream) {
     switch (instance) {
         case GLOBAL:
-            return launch_global<ROW>(params_host, g, height, width, radius,
-                                      grid, stream);
+            return launch_global<ROW>(params_host, g, height, width, row0,
+                                      radius, grid, stream);
 #define VT_DENOISE_CASE(R)                                                   \
     case R:                                                                  \
         return launch<R, ROW>(params_host, fdist_host, g, height, width,     \
-                              radius, grid, shared, stream);
+                              row0, radius, grid, shared, stream);
         VT_DENOISE_CASE(0)
         VT_DENOISE_CASE(1)
         VT_DENOISE_CASE(2)
@@ -454,14 +463,14 @@ cudaError_t launch_instance(int instance, const float* params_host,
 extern "C" int vt_denoise_launch(
     const float* params_host, const float* fdist_host, const float* row,
     const float* colors, const float* normal, const float* depth,
-    const float* albedo, const int* node, int height, int width, int radius,
-    int instance, int block_x, int block_y, int rows_per_thread, int grid_x,
-    int grid_y, int shared, float* out, void* stream) {
+    const float* albedo, const int* node, int height, int width, int row0,
+    int radius, int instance, int block_x, int block_y, int rows_per_thread,
+    int grid_x, int grid_y, int shared, float* out, void* stream) {
     const bool tiled = radius <= MAX_RADIUS;
     const int tile_x = tiled ? TILE_X : BLOCK_X;
     const int tile_y = tiled ? TILE_Y : BLOCK_Y;
     const bool fits =
-        radius >= 1 && params_host && (fdist_host || !tiled) &&
+        radius >= 1 && row0 >= 0 && params_host && (fdist_host || !tiled) &&
         instance ==
             (tiled ? (radius <= STATIC_RADII ? radius : 0) : GLOBAL) &&
         block_x == BLOCK_X && block_y == BLOCK_Y &&
@@ -475,12 +484,12 @@ extern "C" int vt_denoise_launch(
     const Planes g = {colors, normal, depth, albedo, node, out};
     if (!row)
         return static_cast<int>(launch_instance<false>(
-            instance, params_host, fdist_host, g, height, width, radius, grid,
-            shared, s));
+            instance, params_host, fdist_host, g, height, width, row0, radius,
+            grid, shared, s));
     const cudaError_t err = cudaMemcpyToSymbolAsync(
         c_camera, row, sizeof(c_camera), 0, cudaMemcpyDeviceToDevice, s);
     if (err != cudaSuccess) return static_cast<int>(err);
     return static_cast<int>(launch_instance<true>(
-        instance, params_host, fdist_host, g, height, width, radius, grid,
-        shared, s));
+        instance, params_host, fdist_host, g, height, width, row0, radius,
+        grid, shared, s));
 }

@@ -269,12 +269,12 @@ __device__ __forceinline__ uint8_t* image_base(uint8_t* image,
     return (s >= 0 && s < n_images) ? image + s * frame_bytes : nullptr;
 }
 
-// The still epilogue of N adjacent pixels (x .. x + N - 1 of row y, at
-// plane offset o).  In place, `blended` is `old_color`, `next_blend` is
-// `old_blend` and `depth_out` is `old_depth`.
+// The still epilogue of N adjacent pixels (x .. x + N - 1 of image row
+// pyf, at plane offset o).  In place, `blended` is `old_color`,
+// `next_blend` is `old_blend` and `depth_out` is `old_depth`.
 template <int N>
 __device__ __forceinline__ void still_pixels(
-    const float* p, int x, int y, size_t o, size_t plane,
+    const float* p, int x, float pyf, size_t o, size_t plane,
     const float* __restrict__ color, const float* __restrict__ normal,
     const float* __restrict__ depth, const float* old_color,
     const float* old_blend, const float* old_depth,
@@ -305,7 +305,7 @@ __device__ __forceinline__ void still_pixels(
 #pragma unroll
         for (int i = 0; i < N; ++i) {
             if (hit[i]) {
-                valid[i] = same_position(p, (float)(x + i), (float)y, d.v[i],
+                valid[i] = same_position(p, (float)(x + i), pyf, d.v[i],
                                          od.v[i], nx.v[i], ny.v[i], nz.v[i]);
             }
             keep = keep || valid[i];
@@ -368,7 +368,7 @@ __global__ void __launch_bounds__(BLOCK) still_epilogue_kernel(
     const Params P, const float* __restrict__ color,
     const float* __restrict__ normal, const float* __restrict__ depth,
     const float* old_color, const float* old_blend, const float* old_depth,
-    const float* __restrict__ albedo, int height, int width,
+    const float* __restrict__ albedo, int height, int width, int row0,
     float* blended, float* next_blend, float* depth_out,
     float* __restrict__ linear, uint8_t* __restrict__ image,
     const int64_t* __restrict__ slot, int n_images) {
@@ -376,18 +376,19 @@ __global__ void __launch_bounds__(BLOCK) still_epilogue_kernel(
     const int y = blockIdx.y * BLOCK_Y + threadIdx.y;
     if (y >= height || x >= width) return;
     const float* p = ROW ? c_row.p : P.p;
+    const float pyf = (float)(row0 + y);  // the image row (a slab's)
     const size_t plane = (size_t)height * width;
     const size_t o = (size_t)y * width + x;
     uint8_t* img =
         albedo ? image_base(image, slot, n_images, plane * 3) : nullptr;
     if constexpr (VEC) {
-        still_pixels<PX>(p, x, y, o, plane, color, normal, depth, old_color,
+        still_pixels<PX>(p, x, pyf, o, plane, color, normal, depth, old_color,
                          old_blend, old_depth, albedo, blended, next_blend,
                          depth_out, linear, img ? img + o * 3 : nullptr);
     } else {
         const int n = min(PX, width - x);
         for (int i = 0; i < n; ++i) {
-            still_pixels<1>(p, x + i, y, o + i, plane, color, normal, depth,
+            still_pixels<1>(p, x + i, pyf, o + i, plane, color, normal, depth,
                             old_color, old_blend, old_depth, albedo, blended,
                             next_blend, depth_out, linear,
                             img ? img + (o + i) * 3 : nullptr);
@@ -507,10 +508,12 @@ cudaError_t launch_encode(bool vec, int in_h, int in_w, cudaStream_t s,
 
 }  // namespace
 
-// The still blend of a (height, width) frame into `blended` (3, H, W) and
-// `next_blend` (H, W); with `albedo` also the radius-0 modulate, the u8
-// image (at `image`, or at frame *slot of `n_images` where `slot` is not
-// null) and, where `linear` is not null, the modulated linear.  With
+// The still blend of a (height, width) frame (image rows row0 .., a slab
+// of a row-sharded frame, its history the same rows; 0 on one device)
+// into `blended` (3, H, W) and `next_blend` (H, W); with `albedo` also
+// the radius-0 modulate, the u8 image (at `image`, or at frame *slot of
+// `n_images` where `slot` is not null) and, where `linear` is not null,
+// the modulated linear.  With
 // `in_place` the blend goes over `old_color`, the next blend over
 // `old_blend` and `depth` over `old_depth` (`blended` and `next_blend`
 // are then not used).
@@ -518,10 +521,11 @@ extern "C" int vt_still_epilogue_launch(
     const float* params_host, const float* row, const float* color,
     const float* normal, const float* depth, float* old_color,
     float* old_blend, float* old_depth, const float* albedo, int height,
-    int width, float* blended, float* next_blend, float* linear,
+    int width, int row0, float* blended, float* next_blend, float* linear,
     uint8_t* image, const int64_t* slot, int n_images, int in_place,
     void* stream) {
     if (height <= 0 || width <= 0) return static_cast<int>(cudaSuccess);
+    if (row0 < 0) return static_cast<int>(cudaErrorInvalidValue);
     if (albedo && !image) return static_cast<int>(cudaErrorInvalidValue);
     if (!in_place && (!blended || !next_blend))
         return static_cast<int>(cudaErrorInvalidValue);
@@ -545,13 +549,13 @@ extern "C" int vt_still_epilogue_launch(
     }
     err = by_row ? launch_still<true>(vec, height, width, s, P, color, normal,
                                       depth, old_color, old_blend, old_depth,
-                                      albedo, height, width, blended,
+                                      albedo, height, width, row0, blended,
                                       next_blend, depth_out, linear, image,
                                       slot, n_images)
                  : launch_still<false>(vec, height, width, s, P, color,
                                        normal, depth, old_color, old_blend,
                                        old_depth, albedo, height, width,
-                                       blended, next_blend, depth_out,
+                                       row0, blended, next_blend, depth_out,
                                        linear, image, slot, n_images);
     return static_cast<int>(err);
 }

@@ -42,6 +42,15 @@
 // so row-reading launches (and graphs that hold them) from two streams at
 // once would race on it.  The port renders on one stream.
 //
+// Slabs.  The current planes may be a slab of a row-sharded frame
+// (voxtracer_torch/parallel/mesh.py): image rows row0 .. row0 + height - 1
+// against the whole history of img_height rows, which the mesh gathers
+// onto the slab's device; the rays read the image row and the old screen
+// is scaled by the image's height.  The TPU kernel took fixed row halos
+// instead (temporal_pallas.py HALO_TOP / HALO_BOT); the any-offset gather
+// needs the history at any row, as the JAX package's all-gather branch
+// (voxtracer/engine/pipeline.py:294-326) does.
+//
 // What bounds it: memory.  A pixel reads 7 planes of its own and 20
 // gathered history words (4 taps x 5 planes, neighbours of a smooth
 // reprojection, so mostly L1/L2 hits) and writes 4 planes: about
@@ -95,15 +104,16 @@ __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y) temporal_kernel(
     const float* __restrict__ normal,
     const float* __restrict__ depth, const float* __restrict__ old_color,
     const float* __restrict__ old_blend, const float* __restrict__ old_depth,
-    int height, int width, float* __restrict__ blended,
-    float* __restrict__ next_blend) {
+    int height, int width, int row0, int img_height,
+    float* __restrict__ blended, float* __restrict__ next_blend) {
     const int x = blockIdx.x * BLOCK_X + threadIdx.x;
     const int y = blockIdx.y * BLOCK_Y + threadIdx.y;
     if (x >= width || y >= height) return;
     const float* p = ROW ? c_row.p : P.p;
     const size_t plane = (size_t)height * width;
+    const size_t hist_plane = (size_t)img_height * width;
     const size_t o = (size_t)y * width + x;
-    const float pxf = (float)x, pyf = (float)y;
+    const float pxf = (float)x, pyf = (float)(row0 + y);
 
     // the current pixel's ray and first-hit world point
     float rx = pxf * p[3] - pyf * p[6] + p[9];
@@ -123,25 +133,26 @@ __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y) temporal_kernel(
     const float sx = s0 / s2;
     const float sy = s1 / s2;
     const float tex_x = (sx + 0.5f) / (float)width;
-    const float tex_y = (sy - 0.5f) / (float)(-height);
+    const float tex_y = (sy - 0.5f) / (float)(-img_height);
     const bool in_range =
         tex_x >= 0.f && tex_x <= 1.f && tex_y >= 0.f && tex_y <= 1.f;
 
     // bilinear fetch of the 5 history planes at pixel centers
     const float xf = tex_x * (float)width - 0.5f;
-    const float yf = tex_y * (float)height - 0.5f;
+    const float yf = tex_y * (float)img_height - 0.5f;
     const float x0 = floorf(xf);
     const float y0 = floorf(yf);
     const float tx = xf - x0;
     const float ty = yf - y0;
     const int xa = tap_index(x0, width), xb = tap_index(x0 + 1.f, width);
-    const int ya = tap_index(y0, height), yb = tap_index(y0 + 1.f, height);
+    const int ya = tap_index(y0, img_height),
+              yb = tap_index(y0 + 1.f, img_height);
     const size_t i00 = (size_t)ya * width + xa, i10 = (size_t)ya * width + xb;
     const size_t i01 = (size_t)yb * width + xa, i11 = (size_t)yb * width + xb;
     float h[5];
 #pragma unroll
     for (int c = 0; c < 5; ++c) {
-        const float* src = c < 3 ? old_color + c * plane
+        const float* src = c < 3 ? old_color + c * hist_plane
                                  : (c == 3 ? old_blend : old_depth);
         const float top = src[i00] * (1.f - tx) + src[i10] * tx;
         const float bot = src[i01] * (1.f - tx) + src[i11] * tx;
@@ -185,12 +196,17 @@ __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y) temporal_kernel(
 
 // Parameters by value (`params_host`, a host pointer) or, where
 // `params_host` is null, from device memory: `row` points at the
-// kernel's slice of a frame row.
+// kernel's slice of a frame row.  The current planes are `height` rows
+// of the image from row `row0` on (a slab); the history is the whole
+// image, `img_height` rows (one device: row0 0, img_height = height).
 extern "C" int vt_temporal_launch(
     const float* params_host, const float* row, const float* color,
     const float* normal, const float* depth, const float* old_color,
     const float* old_blend, const float* old_depth, int height, int width,
-    float* blended, float* next_blend, void* stream) {
+    int row0, int img_height, float* blended, float* next_blend,
+    void* stream) {
+    if (row0 < 0 || row0 + height > img_height)
+        return static_cast<int>(cudaErrorInvalidValue);
     Params P = {};
     const dim3 block(BLOCK_X, BLOCK_Y);
     const dim3 grid((width + BLOCK_X - 1) / BLOCK_X,
@@ -200,7 +216,7 @@ extern "C" int vt_temporal_launch(
         memcpy(P.p, params_host, sizeof(P.p));
         temporal_kernel<false><<<grid, block, 0, s>>>(
             P, color, normal, depth, old_color, old_blend, old_depth, height,
-            width, blended, next_blend);
+            width, row0, img_height, blended, next_blend);
     } else {
         if (!row) return static_cast<int>(cudaErrorInvalidValue);
         const cudaError_t err = cudaMemcpyToSymbolAsync(
@@ -208,7 +224,7 @@ extern "C" int vt_temporal_launch(
         if (err != cudaSuccess) return static_cast<int>(err);
         temporal_kernel<true><<<grid, block, 0, s>>>(
             P, color, normal, depth, old_color, old_blend, old_depth, height,
-            width, blended, next_blend);
+            width, row0, img_height, blended, next_blend);
     }
     return static_cast<int>(cudaGetLastError());
 }

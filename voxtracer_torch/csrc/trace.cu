@@ -48,6 +48,17 @@
 // launches (and graphs that hold them) from two streams at once would
 // race on it.  The port renders on one stream.
 //
+// Slabs.  A launch renders `height` rows of the image, local row y being
+// image row (y / 16) * row_stride * 16 + row0 + y % 16 (a band of 16 rows
+// is a row of blocks: blockIdx.y and threadIdx.y, no division), and reads
+// that row for its ray and its noise row: a contiguous slab of a
+// row-sharded frame (row_stride 1, row0 its first row) or the cyclic
+// layout's every n-th band (voxtracer_torch/parallel/mesh.py).  The
+// TPU kernel reads the slab's first row from param slot 30
+// (trace_pallas.py:279); here the three integers come by value, outside
+// the frame row, so the row-reading entry and captured graphs are as
+// they were.  One device: row0 0, row_stride 1.
+//
 // What bounds it: each DDA step is a chain of dependent loads (meta
 // word, then brick mask) plus divergence between the rays of a warp,
 // whose step counts differ (SIMT efficiency 0.28 at menger 720p, 0.45
@@ -373,8 +384,9 @@ template <bool ROW>
 __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
 trace_kernel(const Params P, const Geometry g, const Tables tb,
              const int* __restrict__ palette, const float* __restrict__ noise,
-             int n_slices, int frame_value, int height, int width,
-             float* __restrict__ color, float* __restrict__ normal,
+             int n_slices, int frame_value, int height, int width, int row0,
+             int row_stride, float* __restrict__ color,
+             float* __restrict__ normal,
              float* __restrict__ albedo, float* __restrict__ depth,
              int* __restrict__ node_out,
              unsigned long long* __restrict__ counters) {
@@ -398,7 +410,10 @@ trace_kernel(const Params P, const Geometry g, const Tables tb,
 
     if (x < width && y < height) {
         const float TWO_PI = 2.0f * 3.14159265358979323846f;
-        const float px = (float)x, py = (float)y;
+        // the image row this local row renders (ops/trace.py image_rows;
+        // a band is a row of blocks): its ray and its noise row
+        const int gy = blockIdx.y * row_stride * BLOCK_Y + row0 + threadIdx.y;
+        const float px = (float)x, py = (float)gy;
         float rdx = px * pp[3] - py * pp[6] + pp[9];
         float rdy = px * pp[4] - py * pp[7] + pp[10];
         float rdz = px * pp[5] - py * pp[8] + pp[11];
@@ -421,7 +436,7 @@ trace_kernel(const Params P, const Geometry g, const Tables tb,
         float fn[3] = {ALMOST_INFINITY, ALMOST_INFINITY, ALMOST_INFINITY};
         float first_t = -1.f;
 
-        const int pix = (y % NOISE_SIZE) * NOISE_SIZE + (x % NOISE_SIZE);
+        const int pix = (gy % NOISE_SIZE) * NOISE_SIZE + (x % NOISE_SIZE);
         auto rnd = [&](int k) {
             int s = (frame + 1 + k) % n_slices;
             return __ldg(noise + (size_t)s * NOISE_SIZE * NOISE_SIZE + pix);
@@ -589,13 +604,19 @@ trace_kernel(const Params P, const Geometry g, const Tables tb,
 // Parameters by value (`params_host`, a host pointer, and `frame`, already
 // reduced modulo n_slices) or, where `params_host` is null, from device
 // memory: `row` points at the kernel's slice of a frame row (its vector,
-// then the frame number as an int32 bit pattern: a `Row`).
+// then the frame number as an int32 bit pattern: a `Row`).  Local row y
+// of the `height` rows renders image row
+// (y / BLOCK_Y) * row_stride * BLOCK_Y + row0 + y % BLOCK_Y: row0 + y for
+// a contiguous slab (row_stride 1), every row_stride-th band of BLOCK_Y
+// rows for the cyclic slab layout; by value, never through the frame row.
 extern "C" int vt_trace_launch(
     const float* params_host, const float* row, const int* geometry_host,
     const int* packed, const int* meta, const int* brick, const int* palette,
     const float* noise, int n_slices, int frame, int height, int width,
-    float* color, float* normal, float* albedo, float* depth, int* node,
-    unsigned long long* counters, void* stream) {
+    int row0, int row_stride, float* color, float* normal, float* albedo,
+    float* depth, int* node, unsigned long long* counters, void* stream) {
+    if (row0 < 0 || row_stride < 1)
+        return static_cast<int>(cudaErrorInvalidValue);
     Params P = {};
     Geometry g;
     memcpy(&g, geometry_host, sizeof(g));
@@ -607,16 +628,16 @@ extern "C" int vt_trace_launch(
     if (params_host) {
         memcpy(P.p, params_host, sizeof(P.p));
         trace_kernel<false><<<grid, block, 0, s>>>(
-            P, g, tb, palette, noise, n_slices, frame, height, width, color,
-            normal, albedo, depth, node, counters);
+            P, g, tb, palette, noise, n_slices, frame, height, width, row0,
+            row_stride, color, normal, albedo, depth, node, counters);
     } else {
         if (!row) return static_cast<int>(cudaErrorInvalidValue);
         const cudaError_t err = cudaMemcpyToSymbolAsync(
             c_row, row, sizeof(Row), 0, cudaMemcpyDeviceToDevice, s);
         if (err != cudaSuccess) return static_cast<int>(err);
         trace_kernel<true><<<grid, block, 0, s>>>(
-            P, g, tb, palette, noise, n_slices, 0, height, width, color,
-            normal, albedo, depth, node, counters);
+            P, g, tb, palette, noise, n_slices, 0, height, width, row0,
+            row_stride, color, normal, albedo, depth, node, counters);
     }
     return static_cast<int>(cudaGetLastError());
 }

@@ -147,22 +147,22 @@ def load() -> ctypes.CDLL:
     # its slice of a frame row on the device (row).  Null optional
     # pointers (albedo, linear, slot) leave their part out.
     # vt_trace_launch(params, row, geometry, packed, meta, brick, palette,
-    #   noise, n_slices, frame, height, width, color, normal, albedo,
-    #   depth, node, counters, stream) -> cudaError_t
-    lib.vt_trace_launch.argtypes = [p] * 8 + [i] * 4 + [p] * 6 + [p]
+    #   noise, n_slices, frame, height, width, row0, row_stride, color,
+    #   normal, albedo, depth, node, counters, stream) -> cudaError_t
+    lib.vt_trace_launch.argtypes = [p] * 8 + [i] * 6 + [p] * 6 + [p]
     lib.vt_trace_launch.restype = ctypes.c_int
     # vt_trace_info(out[5])
     lib.vt_trace_info.argtypes = [p]
     lib.vt_trace_info.restype = ctypes.c_int
     # vt_temporal_launch(params, row, color, normal, depth, old_color,
-    #   old_blend, old_depth, height, width, blended, next_blend,
-    #   stream) -> cudaError_t
-    lib.vt_temporal_launch.argtypes = [p] * 8 + [i] * 2 + [p] * 3
+    #   old_blend, old_depth, height, width, row0, img_height, blended,
+    #   next_blend, stream) -> cudaError_t
+    lib.vt_temporal_launch.argtypes = [p] * 8 + [i] * 4 + [p] * 3
     lib.vt_temporal_launch.restype = ctypes.c_int
     # vt_denoise_launch(params, fdist, row, colors, normal, depth, albedo,
-    #   node, height, width, radius, instance, block_x, block_y, rows,
-    #   grid_x, grid_y, shared, out, stream) -> cudaError_t
-    lib.vt_denoise_launch.argtypes = [p] * 8 + [i] * 10 + [p] * 2
+    #   node, height, width, row0, radius, instance, block_x, block_y,
+    #   rows, grid_x, grid_y, shared, out, stream) -> cudaError_t
+    lib.vt_denoise_launch.argtypes = [p] * 8 + [i] * 11 + [p] * 2
     lib.vt_denoise_launch.restype = ctypes.c_int
     # vt_resample_launch(hist, px_f, py_f, channels, height, width,
     #   sampled, ok, stream) -> cudaError_t
@@ -173,10 +173,10 @@ def load() -> ctypes.CDLL:
     lib.vt_stall_launch.argtypes = [p] * 2 + [i] * 5 + [p] * 3
     lib.vt_stall_launch.restype = ctypes.c_int
     # vt_still_epilogue_launch(params, row, color, normal, depth,
-    #   old_color, old_blend, old_depth, albedo, height, width, blended,
-    #   next_blend, linear, image, slot, n_images, in_place, stream)
-    #   -> cudaError_t
-    lib.vt_still_epilogue_launch.argtypes = [p] * 9 + [i] * 2 + [p] * 5 + [
+    #   old_color, old_blend, old_depth, albedo, height, width, row0,
+    #   blended, next_blend, linear, image, slot, n_images, in_place,
+    #   stream) -> cudaError_t
+    lib.vt_still_epilogue_launch.argtypes = [p] * 9 + [i] * 3 + [p] * 5 + [
         i, i, p]
     lib.vt_still_epilogue_launch.restype = ctypes.c_int
     # vt_encode_launch(params, row, src, albedo, in_h, in_w, height, width,

@@ -37,7 +37,7 @@ from ..engine.params import (
     DeviceRow,
     check_params,
 )
-from .trace import _div, _max0, _norm_div3
+from .trace import _div, _max0, _norm_div3, pixel_rows
 
 
 def _check_inputs(colors, normal, depth, albedo, node, radius):
@@ -91,15 +91,21 @@ def denoise_plain(
     node: torch.Tensor,  # (H, W) int32 first-hit node (top 8 bits compared)
     params: np.ndarray,  # (16,) f32, engine.params.pack_denoise_params
     radius: int,
+    row0: int = 0,
 ) -> torch.Tensor:
-    """The (2r+1)^2 stencil with plain torch ops, then the modulate."""
+    """The (2r+1)^2 stencil with plain torch ops, then the modulate.
+    The planes are image rows ``row0 ..``: a window of a row-sharded
+    frame (its slab and the halo rows around it), whose edges pad with
+    zeros as the image's do; the rows it keeps tap nothing beyond it."""
     _check_inputs(colors, normal, depth, albedo, node, radius)
+    if row0 < 0:
+        raise ValueError(f"row0 {row0} < 0")
     P = [float(v) for v in check_params(params, DENOISE_PARAMS_LEN)]
     height, width = depth.shape
     dev = depth.device
     r = int(radius)
     px = torch.arange(width, device=dev, dtype=torch.float32)[None, :]
-    py = torch.arange(height, device=dev, dtype=torch.float32)[:, None]
+    py = pixel_rows(height, row0, dev)
     rx, ry, rz = _norm_div3(
         px * P[3] - py * P[6] + P[9],
         px * P[4] - py * P[7] + P[10],
@@ -212,10 +218,12 @@ def denoise_cuda(
     node: torch.Tensor,
     params,  # (16,) f32 vector, or a frame's DeviceRow
     radius: int,
+    row0: int = 0,
 ) -> torch.Tensor:
     """The same stencil and modulate from the hand-written CUDA kernel
-    (csrc/denoise.cu).  ``params`` is the host's vector, passed by
-    value, or a :class:`~voxtracer_torch.engine.params.DeviceRow`: the
+    (csrc/denoise.cu), ``row0`` by value.  ``params`` is the host's
+    vector, passed by value, or a
+    :class:`~voxtracer_torch.engine.params.DeviceRow`: the
     sigmas, the albedo factor and the ``factor_dist`` table, constant
     over a camera path, then come by value from its host row, and the
     kernel's row-reading entry takes the camera rows from the row on the
@@ -223,6 +231,8 @@ def denoise_cuda(
     synchronise.  Raises if an input is not what the kernel takes or the
     launch is refused."""
     _check_inputs(colors, normal, depth, albedo, node, radius)
+    if row0 < 0:
+        raise ValueError(f"row0 {row0} < 0")
     row = None
     if isinstance(params, DeviceRow):
         if params.row.device != depth.device:
@@ -254,6 +264,7 @@ def denoise_cuda(
             *(t.data_ptr() for t in ins),
             height,
             width,
+            row0,
             int(radius),
             plan.instance,
             *plan.block,
@@ -280,6 +291,7 @@ def denoise(
     node: torch.Tensor,
     params,  # (16,) f32 vector, or a frame's DeviceRow
     radius: int,
+    row0: int = 0,  # image row of the planes' row 0 (a slab's window)
 ) -> torch.Tensor:
     """The denoise stage on the tensors' device.  Radius 0 is the
     modulate alone; otherwise the plain stencil for CPU tensors and the
@@ -289,7 +301,7 @@ def denoise(
             return modulate_row(colors, albedo, params.row)
         return _modulate(colors, albedo,
                          check_params(params, DENOISE_PARAMS_LEN)[14])
-    args = (colors, normal, depth, albedo, node, params, radius)
+    args = (colors, normal, depth, albedo, node, params, radius, row0)
     kind = depth.device.type
     if kind == "cpu":
         return denoise_plain(*args)

@@ -100,16 +100,18 @@ def still_epilogue_plain(
     keep_linear: bool = False,
     dest: Dest = None,
     in_place: bool = False,
+    row0: int = 0,  # image row of the planes' row 0 (a slab)
 ):
     """``(blended, next_blend, out, image)``: the still blend and, with
     an albedo plane, the radius-0 modulate and the u8 image (``out`` and
     ``image`` as :func:`encode_plain`'s; both None without albedo).
     ``in_place``: ``blended`` is ``old_color`` and ``next_blend`` is
     ``old_blend``, overwritten, and ``depth`` is copied into
-    ``old_depth``."""
+    ``old_depth``.  With ``row0`` the planes, history included, are a
+    slab of the image from that row on."""
     blended, next_blend = temporal_blend_still_row(
         sampled_color, normal, depth, old_color, old_blend, old_depth,
-        row.row if isinstance(row, DeviceRow) else row)
+        row.row if isinstance(row, DeviceRow) else row, row0)
     if in_place:
         blended = old_color.copy_(blended)
         next_blend = old_blend.copy_(next_blend)
@@ -179,14 +181,15 @@ def still_epilogue_cuda(
     keep_linear: bool = False,
     dest: Dest = None,
     in_place: bool = False,
+    row0: int = 0,
 ):
     """:func:`still_epilogue_plain` from the hand-written CUDA kernel
     (csrc/epilogue.cu, one launch; with ``in_place`` it writes over the
-    history it reads).  Launches on the current stream and does not
-    synchronise.  Raises if an input is not what the kernel
-    takes or the launch is refused."""
+    history it reads; ``row0`` by value).  Launches on the current
+    stream and does not synchronise.  Raises if an input is not what
+    the kernel takes or the launch is refused."""
     planes = (sampled_color, normal, depth, old_color, old_blend, old_depth)
-    _check_planes(*planes)
+    _check_planes(*planes, row0)
     height, width = depth.shape
     dev = depth.device
     ins = planes
@@ -217,7 +220,7 @@ def still_epilogue_cuda(
             "vt_still_epilogue_launch", params, row_ptr,
             *(t.data_ptr() for t in planes),
             None if albedo is None else albedo.data_ptr(),
-            height, width, blended.data_ptr(), next_blend.data_ptr(),
+            height, width, row0, blended.data_ptr(), next_blend.data_ptr(),
             None if out is None else out.data_ptr(), image_ptr, slot_ptr,
             n_images, int(in_place),
             torch.cuda.current_stream(dev).cuda_stream)
@@ -291,13 +294,13 @@ def _pick(depth, plain, cuda, what):
 
 def still_epilogue(sampled_color, normal, depth, old_color, old_blend,
                    old_depth, albedo, row, keep_linear=False, dest=None,
-                   in_place=False):
+                   in_place=False, row0=0):
     """The still epilogue on the tensors' device: the plain composition
     for CPU tensors, the CUDA kernel for CUDA tensors."""
     fn = _pick(depth, still_epilogue_plain, still_epilogue_cuda,
                "still epilogue")
     return fn(sampled_color, normal, depth, old_color, old_blend, old_depth,
-              albedo, row, keep_linear, dest, in_place)
+              albedo, row, keep_linear, dest, in_place, row0)
 
 
 def encode(linear, height, width, albedo=None, row=None, keep_linear=False,

@@ -29,13 +29,16 @@ from __future__ import annotations
 import torch
 
 
-def _check(hist, px_f, py_f):
+def _check(hist, px_f, py_f, any_rows: bool):
+    """Types, devices, and the coordinates' shape: the history's (H, W),
+    or with ``any_rows`` any (h, W)."""
     if hist.dim() != 3 or hist.dtype != torch.float32:
         raise ValueError(
             f"hist must be (C, H, W) float32, got {tuple(hist.shape)} "
             f"{hist.dtype}"
         )
-    shape = tuple(hist.shape[1:])
+    shape = tuple((px_f.shape[:1] if any_rows else hist.shape[1:2])
+                  + hist.shape[2:])
     for name, t in (("px_f", px_f), ("py_f", py_f)):
         if tuple(t.shape) != shape or t.dtype != torch.float32:
             raise ValueError(
@@ -54,11 +57,14 @@ def _tap_index(v: torch.Tensor, n: int) -> torch.Tensor:
 
 def resample_plain(
     hist: torch.Tensor,  # (C, H, W) f32 history planes
-    px_f: torch.Tensor,  # (H, W) f32 source x in pixel units
-    py_f: torch.Tensor,  # (H, W) f32 source y in pixel units
+    px_f: torch.Tensor,  # (h, W) f32 source x in pixel units
+    py_f: torch.Tensor,  # (h, W) f32 source y in pixel units
 ):
-    """Bilinear resample of ``hist`` at (py_f, px_f) with plain torch ops."""
-    _check(hist, px_f, py_f)
+    """Bilinear resample of ``hist`` at (py_f, px_f) with plain torch
+    ops; ``(sampled (C, h, W), ok (h, W))``: the coordinates may cover
+    fewer rows than the history (a slab's pixels against the whole
+    image)."""
+    _check(hist, px_f, py_f, any_rows=True)
     channels, height, width = hist.shape
     xf = px_f - 0.5
     yf = py_f - 0.5
@@ -89,9 +95,9 @@ def resample_cuda(
 ):
     """The same resample from the hand-written CUDA kernel
     (csrc/reproject.cu).  Launches on the current stream and does not
-    synchronise.  Raises if an input is not what the kernel takes or the
-    launch is refused."""
-    _check(hist, px_f, py_f)
+    synchronise.  The coordinates have the history's shape.  Raises if
+    an input is not what the kernel takes or the launch is refused."""
+    _check(hist, px_f, py_f, any_rows=False)
     if hist.device.type != "cuda":
         raise ValueError(f"CUDA kernel given tensors on {hist.device}")
     if not all(t.is_contiguous() for t in (hist, px_f, py_f)):

@@ -58,12 +58,12 @@ from ..engine.params import (
     pack_temporal_params,
 )
 from .reproject import resample, resample_plain
-from .trace import _div, _max0, _norm_div3, as_f32, sqrt_f32
+from .trace import _div, _max0, _norm_div3, as_f32, pixel_rows, sqrt_f32
 
 
 def _blend_still(
     sampled_color, normal, depth, old_color, old_blend, old_depth,
-    cam, old_cam, cutoff, keep_sample, keep_floor, history_valid,
+    cam, old_cam, cutoff, keep_sample, keep_floor, history_valid, row0=0,
 ):
     """The still blend's one body.  ``cam`` and ``old_cam`` are 4 x 3
     scalars; these, ``cutoff``, ``keep_sample`` (1 - sample_blending),
@@ -71,13 +71,14 @@ def _blend_still(
     Python numbers holding float32 values, or all 0-dim tensors on the
     planes' device.  Both kinds give the same bits: a tensor times a
     Python number is computed in float32, and nothing here divides by
-    one."""
+    one.  The planes are image rows ``row0 ..`` (a slab of a row-sharded
+    frame), history included."""
     height, width = depth.shape
     origin, right, up, forward = cam
     o_origin, o_right, o_up, o_forward = old_cam
     dev = depth.device
     px = torch.arange(width, device=dev, dtype=torch.float32)[None, :]
-    py = torch.arange(height, device=dev, dtype=torch.float32)[:, None]
+    py = pixel_rows(height, row0, dev)
 
     def ray_planes(r, u, f):
         x = px * r[0] - py * u[0] + f[0]
@@ -135,6 +136,7 @@ def temporal_blend_still_planar(
     old_cam: np.ndarray,  # (4, 3) f32
     params,  # TemporalParams
     history_valid: bool,
+    row0: int = 0,  # image row of the planes' row 0 (a slab)
 ):
     """Returns ``(blended (3, H, W), next_blending (H, W))``."""
     one = np.float32(1.0)
@@ -145,7 +147,7 @@ def temporal_blend_still_planar(
         as_f32(params.blending_distance_cutoff),
         as_f32(one - np.float32(params.sample_blending)),
         as_f32(one - np.float32(params.maximum_blending)),
-        bool(history_valid),
+        bool(history_valid), row0,
     )
 
 
@@ -157,6 +159,7 @@ def temporal_blend_still_row(
     old_blend: torch.Tensor,
     old_depth: torch.Tensor,
     row,  # (ROW_LEN,) f32, one row of engine.params.pack_frame_rows
+    row0: int = 0,  # image row of the planes' row 0 (a slab)
 ):
     """The still blend reading one frame row: a numpy row on the host
     (its values as Python numbers) or a tensor on the planes' device (its
@@ -175,18 +178,26 @@ def temporal_blend_still_row(
         [t[3 * i:3 * i + 3] for i in range(4)],
         [t[12 + 3 * i:15 + 3 * i] for i in range(4)],
         t[35], row[ROW_KEEP_SAMPLE], row[ROW_KEEP_FLOOR], t[36] > 0.0,
+        row0,
     )
 
 
 def _check_planes(sampled_color, normal, depth, old_color, old_blend,
-                  old_depth):
+                  old_depth, row0=0, whole_history=False):
+    """The planes' shapes, types and device.  The history has the
+    current planes' rows, or with ``whole_history`` every row of the
+    image, of which the current planes are rows ``row0 ..``."""
     height, width = depth.shape
+    hist_h = old_depth.shape[0] if whole_history else height
+    if row0 < 0 or (whole_history and row0 + height > hist_h):
+        raise ValueError(f"rows {row0}..{row0 + height} outside the "
+                         f"history's {hist_h}")
     for name, t, shape in (
         ("sampled_color", sampled_color, (3, height, width)),
         ("normal", normal, (3, height, width)),
-        ("old_color", old_color, (3, height, width)),
-        ("old_blend", old_blend, (height, width)),
-        ("old_depth", old_depth, (height, width)),
+        ("old_color", old_color, (3, hist_h, width)),
+        ("old_blend", old_blend, (hist_h, width)),
+        ("old_depth", old_depth, (hist_h, width)),
     ):
         if tuple(t.shape) != shape or t.dtype != torch.float32:
             raise ValueError(
@@ -206,17 +217,21 @@ def _blend_reproject(
     old_depth: torch.Tensor,  # (H, W) history depth
     params: np.ndarray,  # (40,) f32, engine.params.pack_temporal_params
     resample: Callable,  # an ops.reproject resampler
+    row0: int = 0,
 ):
     """The reprojecting blend in plain torch ops around ``resample``.
-    Returns ``(blended (3, H, W), next_blending (H, W))``."""
+    The current planes are image rows ``row0 ..`` (a slab), the history
+    is the whole image, whose height scales the old screen.  Returns
+    ``(blended (3, h, W), next_blending (h, W))``."""
     _check_planes(sampled_color, normal, depth, old_color, old_blend,
-                  old_depth)
+                  old_depth, row0, whole_history=True)
     # exact float32 values
     P = [float(v) for v in check_params(params, TEMPORAL_PARAMS_LEN)]
     height, width = depth.shape
+    img_height = old_depth.shape[0]
     dev = depth.device
     px = torch.arange(width, device=dev, dtype=torch.float32)[None, :]
-    py = torch.arange(height, device=dev, dtype=torch.float32)[:, None]
+    py = pixel_rows(height, row0, dev)
 
     # the current pixel's ray and first-hit world point
     rx, ry, rz = _norm_div3(
@@ -236,13 +251,13 @@ def _blend_reproject(
     sx = s0 / s2
     sy = s1 / s2
     tex_x = _div(sx + 0.5, float(width))
-    tex_y = _div(sy - 0.5, float(-height))
+    tex_y = _div(sy - 0.5, float(-img_height))
     in_range = (tex_x >= 0) & (tex_x <= 1) & (tex_y >= 0) & (tex_y <= 1)
 
     # the 5 history planes (rgb, blend, depth) at the old screen point;
     # the resampler's coverage mask narrows the in-range test
     hist = torch.cat([old_color, old_blend[None], old_depth[None]])
-    hist5, ok = resample(hist, tex_x * width, tex_y * height)
+    hist5, ok = resample(hist, tex_x * width, tex_y * img_height)
     in_range = in_range & ok
 
     # the old ray quantizes to the pixel lattice (temporal.comp:99-103)
@@ -289,11 +304,13 @@ def temporal_blend_reproject_plain(
     old_blend: torch.Tensor,  # (H, W) history blending (alpha)
     old_depth: torch.Tensor,  # (H, W) history depth
     params: np.ndarray,  # (40,) f32, engine.params.pack_temporal_params
+    row0: int = 0,  # image row of the current planes' row 0 (a slab)
 ):
-    """Returns ``(blended (3, H, W), next_blending (H, W))``."""
+    """Returns ``(blended (3, h, W), next_blending (h, W))`` for the
+    current planes' h rows; the history is the whole (H, W) image."""
     return _blend_reproject(sampled_color, normal, depth, old_color,
                             old_blend, old_depth, params,
-                            resample_plain)
+                            resample_plain, row0)
 
 
 def temporal_blend_reproject_cuda(
@@ -304,16 +321,17 @@ def temporal_blend_reproject_cuda(
     old_blend: torch.Tensor,
     old_depth: torch.Tensor,
     params,  # (40,) f32 vector, or a frame's DeviceRow
+    row0: int = 0,
 ):
     """The same blend from the hand-written CUDA kernel
     (csrc/temporal.cu).  ``params`` is the host's vector, passed by
     value, or a :class:`~voxtracer_torch.engine.params.DeviceRow`: the
     kernel's row-reading entry then takes its vector from the row on the
-    device.  Launches on the current stream and does not
-    synchronise.  Raises if an input is not what the kernel takes or the
-    launch is refused."""
+    device.  ``row0`` and the history's height go by value.  Launches on
+    the current stream and does not synchronise.  Raises if an input is
+    not what the kernel takes or the launch is refused."""
     _check_planes(sampled_color, normal, depth, old_color, old_blend,
-                  old_depth)
+                  old_depth, row0, whole_history=True)
     if isinstance(params, DeviceRow):
         if params.row.device != depth.device:
             raise ValueError(
@@ -340,6 +358,8 @@ def temporal_blend_reproject_cuda(
             *(t.data_ptr() for t in ins),
             height,
             width,
+            row0,
+            old_depth.shape[0],
             blended.data_ptr(),
             next_blending.data_ptr(),
             stream,
@@ -361,11 +381,12 @@ def temporal_blend_reproject(
     old_blend: torch.Tensor,
     old_depth: torch.Tensor,
     params,
+    row0: int = 0,
 ):
     """The reprojecting blend on the tensors' device: the plain version
     for CPU tensors, the CUDA kernel for CUDA tensors."""
     args = (sampled_color, normal, depth, old_color, old_blend, old_depth,
-            params)
+            params, row0)
     kind = depth.device.type
     if kind == "cpu":
         return temporal_blend_reproject_plain(*args)
@@ -386,25 +407,29 @@ def temporal_blend(
     params: TemporalParams,
     history_valid: bool,
     reproject: bool,
+    row0: int = 0,
 ):
     """Channels-last layout wrapper of the planar blends, the counterpart
     of ``voxtracer.ops.temporal.temporal_blend``.  ``reproject=False`` is
     the still blend; ``reproject=True`` the reprojecting blend around
     :func:`voxtracer_torch.ops.reproject.resample`, which takes the
     tensors' device: the plain resampler on the CPU (the reference's
-    ``"xla"``), the kernel on CUDA (its ``"pallas"``).  Returns
-    ``(blended (H, W, 3), next_blending (H, W))``."""
+    ``"xla"``), the kernel on CUDA (its ``"pallas"``, which takes the
+    current planes at the history's size only).  With ``row0`` the
+    current planes are a slab from that image row on, against the whole
+    history when reprojecting, their own rows of it when still.
+    Returns ``(blended (h, W, 3), next_blending (h, W))``."""
     planar = [torch.movedim(t, -1, 0)
               for t in (sampled_color, normal, old_color)]
     if reproject:
         blended, next_blending = _blend_reproject(
             planar[0], planar[1], depth, planar[2], old_blend, old_depth,
             pack_temporal_params(cam, old_cam, params, history_valid),
-            resample,
+            resample, row0,
         )
     else:
         blended, next_blending = temporal_blend_still_planar(
             planar[0], planar[1], depth, planar[2], old_blend, old_depth,
-            cam, old_cam, params, history_valid,
+            cam, old_cam, params, history_valid, row0,
         )
     return torch.movedim(blended, 0, -1), next_blending

@@ -65,6 +65,9 @@ NOISE_SIZE = 128
 TWO_PI = float(np.float32(2.0) * np.float32(np.pi))
 # The CUDA kernel's counters: rays, steps (one per phase each), slots.
 N_COUNTERS = 2 * N_PHASES + 1
+# Rows of a band of the cyclic slab layout: csrc/trace.cu's BLOCK_Y, a
+# row of the kernel's blocks.
+BLOCK_ROWS = 16
 
 Vec3 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -354,6 +357,31 @@ def _check_inputs(tables, noise, height, width):
         raise ValueError(f"invalid size {width}x{height}")
 
 
+def image_rows(height: int, row0: int = 0, row_stride: int = 1) -> np.ndarray:
+    """The image rows that a trace of ``height`` rows renders: its local
+    row y, in band ``y // B`` of B = :data:`BLOCK_ROWS` rows, renders
+    ``(y // B) * row_stride * B + row0 + y % B`` (csrc/trace.cu: a band
+    is a row of its blocks).  With ``row_stride`` 1 that is ``row0 + y``,
+    a contiguous slab; with ``row_stride`` n and ``row0 = c * B``, every
+    n-th band from band c on (the cyclic layout of
+    ``voxtracer_torch.parallel.mesh``)."""
+    y = np.arange(height, dtype=np.int64)
+    return (y // BLOCK_ROWS) * row_stride * BLOCK_ROWS + row0 + y % BLOCK_ROWS
+
+
+def pixel_rows(height: int, row0: int, device) -> torch.Tensor:
+    """(height, 1) float32: the image rows ``row0 .. row0 + height - 1``
+    of a slab's pixels, exact (integers below 2^24)."""
+    return (torch.arange(height, device=device) + row0).to(
+        torch.float32)[:, None]
+
+
+def _check_rows(row0, row_stride):
+    if row0 < 0 or row_stride < 1:
+        raise ValueError(f"invalid rows: row0 {row0}, row_stride "
+                         f"{row_stride}")
+
+
 def render_sample_plain(
     tables: SceneTables,
     params: np.ndarray,  # (32,) f32, engine.params.pack_trace_params
@@ -361,9 +389,15 @@ def render_sample_plain(
     frame: int,
     height: int,
     width: int,
+    row0: int = 0,
+    row_stride: int = 1,
 ) -> Dict[str, torch.Tensor]:
-    """One path-traced sample per pixel with plain torch ops."""
+    """One path-traced sample per pixel with plain torch ops, for the
+    ``height`` image rows of :func:`image_rows` (``row0`` and
+    ``row_stride``: a slab of a row-sharded frame; by default the rows
+    ``0 .. height - 1``)."""
     _check_inputs(tables, noise, height, width)
+    _check_rows(row0, row_stride)
     # exact float32 values
     P = [float(v) for v in check_params(params, TRACE_PARAMS_LEN)]
     dev = tables.device
@@ -372,8 +406,9 @@ def render_sample_plain(
     n_slices = noise.shape[0]
     frame = int(frame) % n_slices
 
+    # each local row's image row: ray generation and the noise row
     yy, xx = torch.meshgrid(
-        torch.arange(height, device=dev),
+        torch.from_numpy(image_rows(height, row0, row_stride)).to(dev),
         torch.arange(width, device=dev),
         indexing="ij",
     )
@@ -548,8 +583,11 @@ def render_sample_cuda(
     frame,  # int; ignored with a DeviceRow, which holds the frame number
     height: int,
     width: int,
+    row0: int = 0,
+    row_stride: int = 1,
 ) -> Dict[str, torch.Tensor]:
-    """The same sample from the hand-written CUDA kernel (csrc/trace.cu).
+    """The same sample from the hand-written CUDA kernel (csrc/trace.cu),
+    for the image rows of :func:`image_rows` (passed by value).
 
     ``params`` is the host's vector, passed by value with ``frame``, or
     a :class:`~voxtracer_torch.engine.params.DeviceRow`: the kernel's
@@ -559,6 +597,7 @@ def render_sample_cuda(
     not synchronise.  Raises if an input is not what the kernel takes or
     the launch is refused."""
     _check_inputs(tables, noise, height, width)
+    _check_rows(row0, row_stride)
     if not isinstance(params, DeviceRow):
         params = check_params(params, TRACE_PARAMS_LEN)
     if tables.device.type != "cuda":
@@ -612,6 +651,8 @@ def render_sample_cuda(
             frame,
             height,
             width,
+            row0,
+            row_stride,
             out["color"].data_ptr(),
             out["normal"].data_ptr(),
             out["albedo"].data_ptr(),
@@ -672,13 +713,16 @@ def render_sample(
     frame,
     height: int,
     width: int,
+    row0: int = 0,
+    row_stride: int = 1,
 ) -> Dict[str, torch.Tensor]:
     """Trace one sample on the tables' device: the plain version for CPU
     tensors, the CUDA kernel for CUDA tensors."""
+    args = (tables, params, noise, frame, height, width, row0, row_stride)
     kind = tables.device.type
     if kind == "cpu":
-        return render_sample_plain(tables, params, noise, frame, height, width)
+        return render_sample_plain(*args)
     if kind == "cuda":
-        return render_sample_cuda(tables, params, noise, frame, height, width)
+        return render_sample_cuda(*args)
     raise ValueError(f"no trace implementation for device {tables.device}")
 
