@@ -163,22 +163,57 @@ Phases (each prints one line; any failure raises and exits non-zero):
     more than one card, configs 3, 4 (cyclic) and the ragged case run
     on the distinct devices too.  Records, not gates: slabs on one card
     only add launches.
+21. (after 20) the slab probe (``voxtracer_torch.app.slabprobe``) on
+    menger 1280x720 and castle 3840x2160, 4 and 8 devices, k in {1, 2,
+    3} contiguous slabs a device and the cyclic layout: every slab's
+    trace bit-equal to the one-launch frame's rows (and the counters'
+    sums), each slab's device ms (CUDA-graph replays), blocks and waves,
+    each device's sum, the skew, the launch overhead; the cyclic rows
+    pad nothing.
+22. the scale probe (``voxtracer_torch.app.scaleprobe``): the synthetic
+    480^3 shell (the reference's size; its fine table is about 3x the
+    50 MB L2, built on the host in the run's time), the build seconds,
+    every table's bytes against the card's L2, ms/frame of
+    ``Renderer(lean=True)`` at 640x360, the trace alone (CUDA-graph
+    replays) and its share of bound (the tables' bytes left out, as in
+    every trace bound), beside menger's at the same size, and the plain
+    trace's node agreement with the kernel: exactly 1.0.
+23. the trace kernel's steps-map instance against the shipped instance
+    (every output and counter equal) and against the plain version's
+    map (bit-equal) on the single voxel, menger 320x180 (bench camera)
+    and menger 333x187; the live-decay curve of each phase
+    (``ops/trace.py`` ``warp_decay``) for menger 1280x720, monu9
+    1920x1080 (dolly t=0) and castle 3840x2160, and each of these three
+    kernel outputs against the plain version's on the same inputs (the
+    maps, nodes, depths, normals, albedos and counters equal, the colour
+    at phase 4's bar; the ``kernels`` line's error is theirs); the
+    shipped instance, the shipped instance with a memset of the map's
+    size, and the steps-map instance timed in turns at menger 1280x720;
+    the trace instances' registers and spills (the shipped ones: 80 and
+    0, as phase 1 reads).
+24. the blue-noise baker (``voxtracer_torch.ops.bluenoise``, torch ops)
+    on the card: ``generate(8, 128)``, its seconds, every slice a
+    permutation of the ranks with a blue spectrum.
 
 Then (phase 15) checks that no module of the JAX package
 (``voxtracer``), JAX or Triton was imported, prints the per-kernel JSON
-line (the five ported TPU kernels and the frame epilogue's two, which
-replace an XLA fusion and no ``pallas_call``: each kernel's launches,
+line (the five ported TPU kernels, the frame epilogue's two, which
+replace an XLA fusion and no ``pallas_call``, and the trace kernel's
+steps-map instance, whose launches are phase 23's: each kernel's launches,
 error, times, bound and share of it,
 launches per frame of each config that ran it, its launches on phase
 12's sequences, per frame of phase 16's viewer loop and on each of
-phase 20's slab cases (``mesh_launches``), and the time of
+phase 20's slab cases (``mesh_launches``), on phases 21-24's paths
+(``slab_launches``, ``scale_launches``, ``decay_launches``,
+``bake_launches``), and the time of
 one PyTorch call computing the same function, where there is one), then
 the device line last.
 
 Bounds (``bound_ms``): the larger of the bytes the function must move
 (each input read once, each output written once; for the epilogue
 kernels ``renderbench.still_bytes``, counted on the run's planes, and
-``encode_bytes``) over 3.35 TB/s and
+``encode_bytes``; for the trace no scene table bytes, since which of
+them a sample reads depends on its rays) over 3.35 TB/s and
 its operations over the card's peak for their type: float32 operations
 over 67 TFLOP/s, or, for the integer and control work of the trace
 kernel, lane operations over the issue rate, 33.5 T a second (132 SMs x
@@ -231,6 +266,13 @@ RESAMPLE_FLOPS_PER_PX_PLANE = 9
 SEQUENCE_KERNELS = ("trace", "temporal", "denoise", "epilogue", "encode")
 # phase 20: frames held against the one-device frames, frames a burst
 MESH_FRAMES, MESH_BURST = 4, 8
+# phase 21: the slab probe's scenes, the mean of SLAB_REPS replays of
+# graphs of SLAB_CHAIN launches
+SLAB_CASES = (("menger", 1280, 720), ("castle", 3840, 2160))
+SLAB_REPS, SLAB_CHAIN = 5, 20
+# phase 22: the scale probe's shell (480: the reference's; fine table
+# about 147 MB, 3x the H100's 50 MB L2)
+SCALE_DIMS = 480
 
 
 def say(phase, msg):
@@ -489,7 +531,7 @@ def phase_main(smi):
     # a still frame at r = 0: the trace and the still epilogue
     assert counts == {"trace": frames, "temporal": 0, "denoise": 0,
                       "resample": 0, "stall": 0, "epilogue": frames,
-                      "encode": 0}, counts
+                      "encode": 0, "trace_steps": 0}, counts
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
 
     image = out["image"].cpu().numpy()
@@ -546,7 +588,7 @@ def phase_main(smi):
            f"1e-3 {int((err > 1e-3).sum())}; u8 px differing by >2 after 2 "
            f"frames {n_px} [{smi}]")
     assert n_px <= 0.005 * WIDTH * HEIGHT
-    bound_ms, bound_by = tracebench.trace_bound(r.tables, k, HEIGHT, WIDTH,
+    bound_ms, bound_by = tracebench.trace_bound(k, HEIGHT, WIDTH,
                                                 r.noise.shape[0])
     entry = {"max_abs_err": float(err.max()), "ms": k_ms, "plain_ms": p_ms,
              "bound_ms": bound_ms, "bound_by": bound_by}
@@ -554,9 +596,9 @@ def phase_main(smi):
 
 
 def frame_kernels():
-    """The launch-counting wrappers of the port's seven kernels, by
-    name: every path zeroes and reads them all, those it must not launch
-    too."""
+    """The launch-counting wrappers of the port's seven kernels and of
+    the trace kernel's steps-map instance (phase 23), by name: every path
+    zeroes and reads them all, those it must not launch too."""
     from voxtracer_torch.app import stallbench
     from voxtracer_torch.ops import (
         denoise,
@@ -574,6 +616,7 @@ def frame_kernels():
         "stall": stallbench.run_cuda,
         "epilogue": epilogue.still_epilogue_cuda,
         "encode": epilogue.encode_cuda,
+        "trace_steps": trace.render_sample_steps_cuda,
     }
 
 
@@ -1007,7 +1050,7 @@ def drive_path(phase, label, scene_name, w, h, path_name, radius, warmup,
     # alone); every frame at r >= 1 and every moving one encodes
     want = {"trace": n, "temporal": moving, "denoise": n if radius else 0,
             "resample": 0, "stall": 0, "epilogue": n - moving,
-            "encode": n if radius else moving}
+            "encode": n if radius else moving, "trace_steps": 0}
     assert launches == want, f"launches {launches} != {want}"
 
     image = out["image"].cpu().numpy()
@@ -1650,7 +1693,7 @@ def phase_harness(smi):
     assert rc == 0 and sorted(by) == [1, 2, 3, 4, 5, 6]
     assert not any("error" in r for r in rows)
     assert all(r["device"] == smi for r in rows)
-    assert all((n > 0) == (name != "stall")
+    assert all((n > 0) == (name not in ("stall", "trace_steps"))
                for name, n in launches.items()), launches
     assert by[1][0]["node_agreement"] >= 0.999, by[1]
     assert len(by[6]) == 15 and min(r["node_agreement"] for r in by[6]) >= 0.99
@@ -1825,7 +1868,8 @@ def phase_interactive(smi):
     per_frame = {name: n / loop_frames for name, n in launches.items()}
     assert launches["trace"] == launches["denoise"] == loop_frames, launches
     assert launches["encode"] == loop_frames, launches
-    assert launches["resample"] == launches["stall"] == 0, launches
+    assert (launches["resample"] == launches["stall"]
+            == launches["trace_steps"] == 0), launches
     assert 0 < launches["temporal"] < loop_frames, launches
     # at r = 2 a frame that does not reproject runs the still blend
     assert launches["epilogue"] + launches["temporal"] == loop_frames
@@ -2136,7 +2180,7 @@ def mesh_case(label, scene_name, path_name, w, h, radius, devices, layout,
     expect = {"trace": n * frames, "temporal": n * moving,
               "denoise": n * frames if radius else 0, "resample": 0,
               "stall": 0, "epilogue": n * (frames - moving),
-              "encode": n * (frames if radius else moving)}
+              "encode": n * (frames if radius else moving), "trace_steps": 0}
     assert counts == expect, (counts, expect)
     img = want["image"].float()
     assert float(img.std()) > 1.0
@@ -2221,6 +2265,307 @@ def phase_mesh(smi):
     return launches
 
 
+def zero_counts(kernels):
+    for k in kernels.values():
+        k.launches = 0
+
+
+def read_counts(kernels):
+    return {name: k.launches for name, k in kernels.items()}
+
+
+def compact(row):
+    """A report row for printing: floats to 6 decimals."""
+    def f(v):
+        if isinstance(v, float):
+            return round(v, 6)
+        if isinstance(v, list):
+            return [f(x) for x in v]
+        return v
+    return json.dumps({k: f(v) for k, v in row.items()})
+
+
+def phase_slabs(smi):
+    """Phase 21: the slab probe (``app/slabprobe.py``) on menger 1280x720
+    and castle 3840x2160, 4 and 8 devices, k in {1, 2, 3} contiguous
+    slabs a device and the cyclic layout: each slab's trace bit-equal to
+    the one-launch frame's rows (the probe raises where not), its device
+    ms from CUDA-graph replays, the skew.  Returns the path's launches."""
+    from voxtracer_torch.app import slabprobe
+    from voxtracer_torch.engine.scene import load_scene
+
+    kernels = frame_kernels()
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    for name, w, h in SLAB_CASES:
+        scene = load_scene(name)
+        full_ms = None
+        for n in (4, 8):
+            for cyclic in (False, True):
+                rows = slabprobe.probe(
+                    scene, w, h, n, [1, 2, 3], torch.device("cuda"),
+                    reps=SLAB_REPS, chain=SLAB_CHAIN, cyclic=cyclic,
+                    full_ms=full_ms)
+                full_ms = rows[0]["full_frame_ms"]
+                for r in rows[1:]:
+                    assert r["exact"] and all(
+                        v > 0 for v in r.get("slab_ms", r["chip_ms"])), r
+                    if cyclic:
+                        assert r["pad_waste"] == 0.0 and r["h_pad"] == h, r
+                    say(21, f"{name} {w}x{h} ndev {n}, one-launch frame "
+                            f"{full_ms:.6f} ms: {compact(r)} [{smi}]")
+    launches = read_counts(kernels)
+    say(21, f"slab probe: {time.perf_counter() - t0:.1f} s, launches "
+            f"{launches}")
+    assert launches["trace"] > 0 and sum(launches.values()) == launches[
+        "trace"], launches
+    return launches
+
+
+def phase_scale(smi):
+    """Phase 22: the scale probe (``app/scaleprobe.py``): the synthetic
+    shell at ``SCALE_DIMS``, its fine table past the L2; build seconds,
+    table bytes, ms/frame of ``Renderer(lean=True)``, the trace alone and
+    its share of its bound, and the plain trace's node agreement, exactly
+    1.0.  Then menger at the same size with the bench camera, for the
+    share of bound of tables inside the L2.  Returns the path's launches
+    and the probe's figures."""
+    from voxtracer_torch.app import scaleprobe
+    from voxtracer_torch.engine.camera import Camera
+    from voxtracer_torch.engine.params import RenderParams, pack_trace_params
+    from voxtracer_torch.engine.scene import TABLES, SceneTables, load_scene
+    from voxtracer_torch.ops.noise import blue_noise_buffer
+
+    kernels = frame_kernels()
+    zero_counts(kernels)
+    res = scaleprobe.probe(SCALE_DIMS, 640, 360, 4, torch.device("cuda"),
+                           plain=True, say=lambda m: say(22, f"{m} [{smi}]"))
+    launches = read_counts(kernels)
+    fine = res["table_bytes"]["packed_idx"]
+    say(22, f"shell {SCALE_DIMS}^3: fine table {fine} bytes = "
+            f"{fine / res['l2_bytes']:.3f} x the L2 ({res['l2_bytes']} "
+            f"bytes), all tables {sum(res['table_bytes'].values())}; launches "
+            f"{launches}")
+    assert res["device"] == smi and fine > res["l2_bytes"], res
+    assert res["node_agreement"] == 1.0 and res["disagreements"] == 0, res
+    assert launches["trace"] > 0 and launches["epilogue"] > 0, launches
+    tables = SceneTables(load_scene("menger"), "cuda")
+    nbytes = sum(4 * getattr(tables, t).numel() for t in TABLES)
+    cam = Camera(position=np.array(BENCH_POS), direction=np.array(BENCH_DIR))
+    r, _ = scaleprobe.trace_alone(
+        tables, pack_trace_params(cam.rows(640, 360), RenderParams()),
+        torch.from_numpy(blue_noise_buffer()).cuda(), 360, 640)
+    say(22, f"beside it, menger 640x360 with the bench camera (tables "
+            f"{nbytes} bytes): trace {r['trace_ms']:.4f} ms, bound "
+            f"{r['trace_bound_ms']:.4f} ms ({r['trace_bound_by']}), share "
+            f"{r['trace_share']:.4f}; the shell: {res['trace_ms']:.4f} ms, "
+            f"bound {res['trace_bound_ms']:.4f} ms ({res['trace_bound_by']}), "
+            f"share {res['trace_share']:.4f} [{smi}]")
+    return launches, res
+
+
+def compare_steps_map(label, tables, cam, w, h, noise):
+    """The steps-map instance against the shipped instance (every output
+    and counter equal) and against the plain version's map (equal);
+    each phase's map sums to its ``steps``."""
+    from voxtracer_torch.engine.params import RenderParams, pack_trace_params
+    from voxtracer_torch.ops import trace
+
+    params = pack_trace_params(cam.rows(w, h), RenderParams())
+    args = (tables, params, noise, 1, h, w)
+    k = trace.render_sample_steps_cuda(*args)
+    s = trace.render_sample_cuda(*args)
+    p = trace.render_sample_plain(*args, steps_map=True)
+    torch.cuda.synchronize()
+    differ = [key for key in ("color", "normal", "depth", "albedo", "node",
+                              "rays", "steps", "slots")
+              if not torch.equal(k[key], s[key])]
+    sums = k["steps_map"].sum(dim=(1, 2)).long()
+    per_phase = (k["steps_map"] != p["steps_map"]).sum(dim=(1, 2)).tolist()
+    err = int((k["steps_map"] - p["steps_map"]).abs().max())
+    say(23, f"steps map {label} {w}x{h}: outputs differing from the shipped "
+            f"instance's {differ}; map sums {sums.tolist()} == steps "
+            f"{k['steps'].tolist()}; pixels differing from the plain map per "
+            f"phase {per_phase}, max |diff| {err}")
+    assert not differ and torch.equal(sums, k["steps"]), differ
+    assert torch.equal(k["steps_map"], p["steps_map"]), per_phase
+
+
+def full_size_against_plain(name, args, out):
+    """A decay case's steps-map kernel output against the plain
+    version's on the same inputs: the steps map, node, depth, normal,
+    albedo and counters equal, the colour at phase 4's bar (over 1e-3 at
+    no more than 0.5% of the pixels; ``expf``/``logf``/``cosf``/``sinf``
+    round differently on the card).  Returns (the plain call's ms, the
+    largest |kernel - plain| of the maps, of the colour)."""
+    from voxtracer_torch.ops import trace
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p = trace.render_sample_plain(*args, steps_map=True)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    h, w = args[4], args[5]
+    per_phase = (out["steps_map"] != p["steps_map"]).sum(dim=(1, 2)).tolist()
+    map_err = int((out["steps_map"] - p["steps_map"]).abs().max())
+    cerr = (out["color"] - p["color"]).abs().amax(dim=0)
+    color_err = float(cerr.max())
+    beyond = int((cerr > 1e-3).sum())
+    differ = [key for key in ("node", "depth", "normal", "albedo", "rays",
+                              "steps")
+              if not torch.equal(out[key], p[key])]
+    say(23, f"{name} {w}x{h} against the plain version ({plain_ms:.1f} ms): "
+            f"steps-map pixels differing per phase {per_phase}, max |diff| "
+            f"{map_err}; outputs differing {differ}; colour max |diff| "
+            f"{color_err:g}, px beyond 1e-3 {beyond}")
+    assert torch.equal(out["steps_map"], p["steps_map"]), per_phase
+    assert not differ and beyond <= 0.005 * w * h, (differ, beyond)
+    return plain_ms, map_err, color_err
+
+
+def phase_decay(smi):
+    """Phase 23: the trace kernel's steps-map instance against the
+    shipped instance and the plain version (single voxel, menger 320x180
+    with the bench camera, menger 333x187), then the live-decay curve of
+    each phase for menger 720p, monu9 1080p (dolly t=0) and castle 4K
+    (``tracebench.cases``, blue noise, frame 1), each of these kernel
+    outputs then held against the plain version's on the same inputs,
+    then the shipped instance, the shipped instance with the map's
+    zeroing and the steps-map instance timed at menger 720p in turns,
+    and the shipped instances' registers and spills.  Returns the path's
+    launches and the steps instance's entry for the kernels line, its
+    error from the three full-size cases."""
+    from voxtracer_torch.engine.camera import Camera
+    from voxtracer_torch.engine.params import RenderParams, pack_trace_params
+    from voxtracer_torch.engine.scene import SceneTables, load_scene
+    from voxtracer_torch.ops import _build, trace
+    from voxtracer_torch.ops.noise import blue_noise_buffer
+    from voxtracer_torch.app.renderbench import graph_ms
+
+    kernels = frame_kernels()
+    noise = torch.from_numpy(blue_noise_buffer()).cuda()
+    bench_cam = Camera(position=np.array(BENCH_POS),
+                       direction=np.array(BENCH_DIR))
+    menger = SceneTables(load_scene("menger"), "cuda")
+    compare_steps_map(
+        "single voxel", SceneTables(single_voxel_scene(), "cuda"),
+        Camera(position=np.array([0.3, 0.2, -1.5])), 32, 32, noise)
+    compare_steps_map("menger", menger, bench_cam, 320, 180, noise)
+    compare_steps_map("menger", menger, bench_cam, 333, 187, noise)
+    zero_counts(kernels)
+    runs = []
+    for name, scene, cam, w, h in tracebench.cases():
+        tables = menger if name == "menger" else SceneTables(scene, "cuda")
+        args = (tables, pack_trace_params(cam.rows(w, h), RenderParams()),
+                noise, 1, h, w)
+        out = trace.render_sample_steps(*args)
+        runs.append((name, args, out))
+        curve = trace.warp_decay(out["steps_map"])
+        trips = sum(r["trips"] for r in curve)
+        slots = int(out["slots"][0])
+        say(23, f"live decay, {name} {w}x{h}: " + "; ".join(
+            f"{ph} trips {r['trips']} " + " ".join(
+                f"{c} {r[c]:.4f}" for c in trace.DECAY_COLUMNS)
+            for ph, r in zip(("b0", "s0", "b1", "s1", "b2", "s2"), curve))
+            + f"; warp trips {trips}, kernel slots {slots} (a warp that "
+              f"reaches its count in pieces adds a slot each) [{smi}]")
+        for r in curve:
+            vals = [r[c] for c in trace.DECAY_COLUMNS]
+            assert vals == sorted(vals) and 0 <= vals[0] and vals[-1] <= 1, r
+        assert 0 < trips <= slots, (trips, slots)
+    launches = read_counts(kernels)
+    assert launches["trace_steps"] == 3 and sum(launches.values()) == 3, (
+        launches)
+
+    # the decay path's kernel outputs against the plain version's
+    checked = {name: full_size_against_plain(name, args, out)
+               for name, args, out in runs}
+    plain_ms = checked["menger"][0]
+    err = max(max(map_err, color_err) for _, map_err, color_err in
+              checked.values())
+
+    # the shipped instance, the shipped instance and a zeroed map of the
+    # steps instance's size (the memset its wrapper adds), and the
+    # steps-map instance at menger 720p, in turns, on the device alone
+    # (CUDA-graph replays)
+    name, args, out = runs[0]
+    assert name == "menger" and args[4:] == (HEIGHT, WIDTH)
+    variants = {
+        "shipped": lambda: trace.render_sample_cuda(*args),
+        "zeroed": lambda: (trace.render_sample_cuda(*args), torch.zeros(
+            (trace.N_PHASES, HEIGHT, WIDTH), dtype=torch.int32,
+            device="cuda")),
+        "steps": lambda: trace.render_sample_steps_cuda(*args),
+    }
+    times = {k: [] for k in variants}
+    for which in ("shipped", "zeroed", "steps", "steps", "zeroed",
+                  "shipped"):
+        times[which].append(graph_ms(variants[which], 20, 5))
+    bound_ms, bound_by = tracebench.trace_bound(out, HEIGHT, WIDTH,
+                                                noise.shape[0])
+    ms = statistics.median(times["steps"])
+    listed = {k: ", ".join(f"{t:.4f}" for t in v) for k, v in times.items()}
+    say(23, f"menger {WIDTH}x{HEIGHT} (bench camera), in turns: shipped "
+            f"instance {listed['shipped']} ms, shipped instance and the "
+            f"map's memset {listed['zeroed']} ms, steps-map instance (its "
+            f"memset included) {listed['steps']} ms; plain version with the "
+            f"map {plain_ms:.1f} ms; bound {bound_ms:.4f} ms ({bound_by}) "
+            f"[{smi}]")
+
+    log = _build.build_log()
+    inst = ptxas_entries(log, r"trace_kernelILb(\dELb\d)E")
+    say(23, "trace instances (registers, spill bytes, static shared bytes): "
+            + ", ".join(f"{k}: {v}" for k, v in sorted(inst.items()))
+            + f"; phase 1's by-value instance {trace.kernel_info()}")
+    # the shipped instances as they were before the steps-map instance:
+    # 80 registers, no spills (the steps-map instance, an instrument, is
+    # reported, not held to it)
+    assert inst["0ELb0"][:2] == (80, 0) and inst["1ELb0"][:2] == (80, 0), inst
+    assert trace.kernel_info()["registers"] == 80
+    entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by,
+             "shipped_ms": statistics.median(times["shipped"]),
+             "shipped_and_memset_ms": statistics.median(times["zeroed"]),
+             "registers": inst["0ELb1"][0], "spill_bytes": inst["0ELb1"][1]}
+    return launches, entry
+
+
+def phase_bake(smi):
+    """Phase 24: the blue-noise baker (``ops/bluenoise.py``, plain torch)
+    on the card: ``generate(8, 128)``, its seconds, and the JAX test's
+    properties on every slice.  Returns the path's launches (none of the
+    repo's kernels: the baker is torch ops)."""
+    from voxtracer_torch.ops import bluenoise
+
+    kernels = frame_kernels()
+    zero_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    noise = bluenoise.generate(8, 128, seed=0, device="cuda")
+    seconds = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    n = 128 * 128
+    freq = np.fft.fftfreq(128)
+    fy, fx = np.meshgrid(freq, freq, indexing="ij")
+    rad = np.sqrt(fy**2 + fx**2)
+    ratios = []
+    for s in range(noise.shape[0]):
+        np.testing.assert_allclose(np.sort(noise[s].reshape(-1)),
+                                   (np.arange(n) + 0.5) / n, atol=1e-6)
+        pat = (noise[s] < 0.25).astype(np.float64)
+        pat -= pat.mean()
+        spec = np.abs(np.fft.fft2(pat)) ** 2
+        ratios.append(spec[rad > 0.3].mean()
+                      / spec[(rad < 0.15) & (rad > 0)].mean())
+    say(24, f"generate(8, 128) on the card: {seconds:.2f} s; every slice a "
+            f"permutation of (rank + 0.5) / N; high / low spectrum "
+            f"{', '.join(f'{r:.1f}' for r in ratios)} (the JAX test's bar: "
+            f"> 2); launches {launches} [{smi}]")
+    assert noise.shape == (8, 128, 128) and min(ratios) > 2.0, ratios
+    assert sum(launches.values()) == 0, launches
+    return launches
+
+
 def check_no_jax_package():
     """The run imported nothing of the JAX package, JAX or Triton."""
     bad = sorted(m for m in sys.modules
@@ -2267,6 +2612,10 @@ def main():
     phase_reload(smi)
     phase_whitted(smi)
     mesh = phase_mesh(smi)
+    slab_counts = phase_slabs(smi)
+    scale_counts, _ = phase_scale(smi)
+    decay_counts, entries["trace_steps"] = phase_decay(smi)
+    bake_counts = phase_bake(smi)
     check_no_jax_package()
     # The trace's and the still epilogue's launches come from the main
     # path (config 2, phase 4), the trace's times and bound too, the
@@ -2277,6 +2626,8 @@ def main():
     # epilogue and the encode, whose float32 outputs are bit-equal)
     launches["trace"] = main_counts["trace"]
     launches["epilogue"] = main_counts["epilogue"]
+    # the steps-map instance's path is the decay phase's (23)
+    launches["trace_steps"] = decay_counts["trace_steps"]
     entries["epilogue"] = epilogue_entry
     entries["encode"]["times_by_case"] = encode_cases
     entries["trace"] = {
@@ -2305,8 +2656,14 @@ def main():
             case: counts[name] for case, counts in mesh.items()}
         total = sum(entries[name]["mesh_launches"].values())
         assert (total > 0) == (name in SEQUENCE_KERNELS), (name, total)
+        # phases 21-24's paths, each read around it
+        for key, counts in (("slab_launches", slab_counts),
+                            ("scale_launches", scale_counts),
+                            ("decay_launches", decay_counts),
+                            ("bake_launches", bake_counts)):
+            entries[name][key] = counts[name]
     for name in ("trace", "temporal", "denoise", "stall", "epilogue",
-                 "encode"):
+                 "encode", "trace_steps"):
         entries[name]["library_ms"] = None  # no one PyTorch call computes it
     sources = {
         "trace": ("voxtracer_torch/csrc/trace.cu",
@@ -2328,6 +2685,10 @@ def main():
         "encode": ("voxtracer_torch/csrc/epilogue.cu",
                    "voxtracer/engine/pipeline.py:552-553 (XLA fusion of "
                    "voxtracer/ops/tonemap.py:37)"),
+        # the trace kernel's second instance: each pixel's steps a phase
+        "trace_steps": ("voxtracer_torch/csrc/trace.cu",
+                        "voxtracer/ops/trace_pallas.py:2301 (its live-decay "
+                        "counters, :1322-1393)"),
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "launches_per_frame", "sequence_launches", "mesh_launches",

@@ -185,13 +185,27 @@ def test_tracebench_counts_the_plain_sample():
         + tracebench.OPS_PER_PIXEL * w * h
         + tracebench.OPS_PER_BOUNCE * (rays[2] + rays[4])
         + tracebench.OPS_PER_LAST_HIT * rays[5])
-    words = sum(getattr(tables, n).numel() for n in
-                ("packed_idx", "meta_idx", "brick_idx", "palette"))
-    t_bytes = (44 * w * h + 4 * words + 24 * 128 * 128 * 4) / 3.35e9
+    t_bytes = (44 * w * h + 24 * 128 * 128 * 4) / 3.35e9
     t_ops = row["ops"] / 33.5e9
     assert row["bound_ms"] == pytest.approx(max(t_bytes, t_ops), rel=1e-12)
     assert row["bound_by"] == ("bytes" if t_bytes >= t_ops else "operations")
     assert row["share"] == row["bound_ms"] / row["ms"] and row["device"] == "cpu"
+
+
+@pytest.mark.parametrize("steps_map, per_px", [(False, 44), (True, 68)])
+def test_trace_bound_counts_the_outputs_written(steps_map, per_px):
+    """The bound's bytes are the G-buffer (and the steps-map instance's 6
+    int32 a pixel where ``out`` holds its map) and the noise slices read,
+    and no table bytes."""
+    h, w = 720, 1280
+    out = {"rays": torch.zeros(6, dtype=torch.int64),
+           "steps": torch.zeros(6, dtype=torch.int64)}
+    if steps_map:
+        out["steps_map"] = torch.zeros((6, h, w), dtype=torch.int32)
+    bound_ms, bound_by = tracebench.trace_bound(out, h, w, 64)
+    assert bound_by == "bytes"
+    assert bound_ms == pytest.approx(
+        (per_px * h * w + 24 * 128 * 128 * 4) / 3.35e9, rel=1e-12)
 
 
 @pytest.mark.parametrize("ops, nbytes, by", [(67e9, 1e6, "operations"),

@@ -869,3 +869,82 @@ def test_harness_config4_runs_the_resample_kernel(cuda, monkeypatch, capsys):
     (line,) = [ln for ln in capsys.readouterr().out.splitlines()
                if ln.startswith("{")]
     assert "temporal_reproject" in line and "error" not in line
+
+
+_STEPS_CASES = {
+    "single_voxel": (lambda: GridScene.from_voxels(VoxelList(
+        pos=np.array([[0, 0, 0]], dtype=np.int16),
+        mrgb=np.array([[0, 200, 100, 50]], dtype=np.uint8))),
+        Camera(position=np.array([0.3, 0.2, -1.5])), 32, 32),
+    "menger": (lambda: load_scene("menger"), MENGER, 160, 96),
+    "ragged": (lambda: load_scene("menger"), MENGER, 333, 187),
+}
+
+
+@pytest.mark.parametrize("case", list(_STEPS_CASES))
+def test_steps_map_kernel_matches_plain(cuda, case):
+    """The steps-map instance: the shipped instance's outputs and
+    counters, each phase's map summing to its ``steps``, the map equal
+    to the plain version's, and so the decay curve too."""
+    scene_fn, cam, w, h = _STEPS_CASES[case]
+    args = (SceneTables(scene_fn(), cuda),
+            pack_trace_params(cam.rows(w, h), RenderParams()),
+            torch.from_numpy(blue_noise_buffer()).to(cuda), 1, h, w)
+    before = trace.render_sample_steps_cuda.launches
+    k = trace.render_sample_steps(*args)
+    assert trace.render_sample_steps_cuda.launches - before == 1
+    s = trace.render_sample_cuda(*args)
+    p = trace.render_sample_plain(*args, steps_map=True)
+    torch.cuda.synchronize()
+    for key in ("color", "normal", "depth", "albedo", "node", "rays", "steps",
+                "slots"):
+        assert torch.equal(k[key], s[key]), key
+    assert torch.equal(k["steps_map"].sum(dim=(1, 2)).long(), k["steps"])
+    assert torch.equal(k["steps_map"], p["steps_map"])
+    assert trace.warp_decay(k["steps_map"]) == trace.warp_decay(
+        p["steps_map"])
+
+
+def test_slabprobe_on_the_card(cuda):
+    """Slabs of menger 320x180 in 2 x k and the cyclic layout: every slab
+    exact against the frame's rows, timed, with its waves."""
+    from voxtracer_torch.app import slabprobe
+
+    scene = load_scene("menger")
+    rows = slabprobe.probe(scene, 320, 180, 2, [1, 2], cuda, reps=2, chain=4)
+    assert [r.get("k") for r in rows[1:]] == [1, 2]
+    for r in rows[1:]:
+        assert r["exact"] and all(v > 0 for v in r["slab_ms"])
+        assert len(r["slab_waves"]) == 2 * r["k"]
+    (_, cyc) = slabprobe.probe(scene, 320, 180, 2, [], cuda, reps=2, chain=4,
+                               cyclic=True)
+    assert cyc["exact"] and cyc["pad_waste"] == 0.0 and cyc["h_pad"] == 180
+
+
+def test_scaleprobe_node_agreement_is_exact_on_the_card(cuda):
+    """The kernel is bit-equal to its plain version, so the shell's node
+    agreement is 1.0 exactly."""
+    from voxtracer_torch.app import scaleprobe
+
+    res = scaleprobe.probe(64, 128, 72, 2, cuda, plain=True, say=lambda s: 0)
+    assert res["node_agreement"] == 1.0 and res["disagreements"] == 0
+    assert res["hit_fraction"] > 0 and 0 < res["trace_share"] <= 1.0
+    assert res["l2_bytes"] > 0
+
+
+def test_bluenoise_bakes_on_the_card(cuda):
+    """The baker on the card meets the JAX test's bar."""
+    from voxtracer_torch.ops import bluenoise
+
+    noise = bluenoise.generate(count=2, size=16, seed=1, device=cuda)
+    n = 16 * 16
+    for s in range(2):
+        np.testing.assert_allclose(np.sort(noise[s].reshape(-1)),
+                                   (np.arange(n) + 0.5) / n, atol=1e-6)
+    pat = (noise[0] < 0.25).astype(np.float64)
+    pat -= pat.mean()
+    spec = np.abs(np.fft.fft2(pat)) ** 2
+    freq = np.fft.fftfreq(16)
+    fy, fx = np.meshgrid(freq, freq, indexing="ij")
+    rad = np.sqrt(fy**2 + fx**2)
+    assert spec[rad > 0.3].mean() > 2.0 * spec[(rad < 0.15) & (rad > 0)].mean()

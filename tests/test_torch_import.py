@@ -43,11 +43,11 @@ def test_port_imports_neither_jax_nor_triton():
     )
     res = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("trace", "temporal", "denoise", "reproject", "_build",
-                 "whitted"):
+                 "whitted", "bluenoise"):
         assert f"voxtracer_torch.ops.{name}" in res["modules"]
     for name in ("cli", "bench", "phasestats", "stallbench", "tracebench",
                  "denoisebench", "input", "viewer", "web", "ibench",
-                 "profile"):
+                 "profile", "slabprobe", "scaleprobe"):
         assert f"voxtracer_torch.app.{name}" in res["modules"]
     for name in ("io.vox", "io.image", "scene.grid", "scene.procedural",
                  "native", "oracle.renderer", "ops.noise", "utils.log",

@@ -9,9 +9,10 @@ clock on the CPU, where the plain version runs).  SIMT efficiency:
 steps / (32 x slots), from the kernel's counters (``csrc/trace.cu``).
 
 Bound (``bound_ms``): the larger of the bytes one sample must move over
-3.35 TB/s — the G-buffer written once (44 bytes a pixel), the scene
-tables and the 24 noise slices it reads once — and the operations it
-needs over the card's issue rate, 33.5 T lane operations a second
+3.35 TB/s — the G-buffer written once (44 bytes a pixel; 68 with the
+steps-map instance's 6 int32 steps a pixel) and the 24 noise slices it
+reads once — and the operations it needs over the card's issue rate,
+33.5 T lane operations a second
 (132 SMs x 4 schedulers x 32 lanes x 1.98 GHz).  The operations are
 counted from the function's definition (``csrc/trace.cu``, the plain
 version in ``ops/trace.py``), not from any kernel's instructions: each
@@ -19,7 +20,12 @@ arithmetic, logic, compare, select, conversion, load or store of one
 lane is one, and so is each division, square root and transcendental (a
 lower bound on their instructions).  They are summed over this sample's
 counted work, per kind (``OPS_PER_*``); where the counters cannot tell
-two kinds apart, the cheaper one is counted.
+two kinds apart, the cheaper one is counted.  The scene tables' bytes
+are left out: which of them a sample reads depends on its rays, and a
+frame may read a small part of them (the scale probe's shell, 4% of
+whose pixels hit), so only a bound without them is a lower bound
+whatever the rays read.  At the shipped scenes their 0.04-1.21 MB are
+under 3% of the G-buffer's bytes at the sizes above.
 
 Run (on the card): python -m voxtracer_torch.app.tracebench
 """
@@ -88,19 +94,21 @@ def bound(nbytes, ops, rate):
 
 def trace_ops(rays, steps, h, w):
     """The operations one sample needs, from its per-phase ``rays`` and
-    ``steps`` [b0, s0, b1, s1, b2, s2]."""
+    ``steps`` [b0, s0, b1, s1, b2, s2] (arrays or tensors)."""
     rays = [int(n) for n in rays]
     b1, b2, s2 = rays[2], rays[4], rays[5]
-    return (OPS_PER_STEP * int(np.sum(steps)) + OPS_PER_RAY * sum(rays)
+    return (OPS_PER_STEP * sum(int(n) for n in steps)
+            + OPS_PER_RAY * sum(rays)
             + OPS_PER_HIT * (b1 + b2 + s2) + OPS_PER_PIXEL * h * w
             + OPS_PER_BOUNCE * (b1 + b2) + OPS_PER_LAST_HIT * s2)
 
 
-def trace_bound(tables, out, h, w, n_slices):
-    """(bound_ms, bound_by) of one traced sample from its counters."""
-    words = sum(getattr(tables, name).numel() for name in
-                ("packed_idx", "meta_idx", "brick_idx", "palette"))
-    nbytes = 44 * h * w + 4 * words + min(24, n_slices) * 128 * 128 * 4
+def trace_bound(out, h, w, n_slices):
+    """(bound_ms, bound_by) of one traced sample from its output: its
+    counters, and its ``steps_map`` where the steps-map instance wrote
+    one (24 bytes a pixel more)."""
+    per_px = 44 + (4 * trace_op.N_PHASES if "steps_map" in out else 0)
+    nbytes = per_px * h * w + min(24, n_slices) * 128 * 128 * 4
     return bound(nbytes, trace_ops(out["rays"], out["steps"], h, w),
                  LANE_OPS_PER_S)
 
@@ -131,7 +139,7 @@ def measure(name, scene, cam, w, h, device, reps):
            trace_op.render_sample(*args).items()
            if k in ("rays", "steps", "slots")}
     ms = _stage_ms(lambda: trace_op.render_sample(*args), device, reps)
-    bound_ms, bound_by = trace_bound(tables, out, h, w, noise.shape[0])
+    bound_ms, bound_by = trace_bound(out, h, w, noise.shape[0])
     steps = int(out["steps"].sum())
     slots = int(out["slots"][0]) if "slots" in out else None
     return {

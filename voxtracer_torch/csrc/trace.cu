@@ -48,6 +48,17 @@
 // launches (and graphs that hold them) from two streams at once would
 // race on it.  The port renders on one stream.
 //
+// Steps map.  A second by-value instance (STEPS) also writes each
+// pixel's DDA steps per phase into a (6, height, width) int32 map that
+// the launcher zeroes (a phase a path never reaches stays 0): the
+// per-lane counts behind `slots` (int32 offsets: the launcher refuses
+// 6 x height x width >= 2^31), from which ops/trace.py `warp_decay`
+// forms the live-lane decay curve of each phase.  The rank is taken
+// there and not here: count_steps runs under __activemask() inside the
+// bounce loop, and a diverged warp can reach it in pieces, so a rank
+// formed here could see only part of the warp.  The shipped instances
+// compile as before (the map's stores are `if constexpr`).
+//
 // Slabs.  A launch renders `height` rows of the image, local row y being
 // image row (y / 16) * row_stride * 16 + row0 + y % 16 (a band of 16 rows
 // is a row of blocks: blockIdx.y and threadIdx.y, no division), and reads
@@ -380,7 +391,7 @@ __device__ __forceinline__ void count_steps(unsigned* cnt, int phase,
     }
 }
 
-template <bool ROW>
+template <bool ROW, bool STEPS>
 __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
 trace_kernel(const Params P, const Geometry g, const Tables tb,
              const int* __restrict__ palette, const float* __restrict__ noise,
@@ -389,7 +400,8 @@ trace_kernel(const Params P, const Geometry g, const Tables tb,
              float* __restrict__ normal,
              float* __restrict__ albedo, float* __restrict__ depth,
              int* __restrict__ node_out,
-             unsigned long long* __restrict__ counters) {
+             unsigned long long* __restrict__ counters,
+             int* __restrict__ steps_map) {
     __shared__ int pal[PALETTE_SLOTS];
     // this block's counters (a block's steps fit 32 bits: 256 rays of at
     // most 6 x MAX_RAY_STEPS steps a phase)
@@ -448,6 +460,9 @@ trace_kernel(const Params P, const Geometry g, const Tables tb,
             traced |= 1u << (2 * bounce);
             const Hit h = traverse(g, tb, rox, roy, roz, rdx, rdy, rdz);
             count_steps(cnt, 2 * bounce, h.steps);
+            if constexpr (STEPS)
+                steps_map[(2 * bounce) * height * width + y * width + x] =
+                    h.steps;
             if (!h.hit) {
                 // a miss adds the sky, with the sun disk on the primary
                 // ray only, and ends the path
@@ -565,6 +580,9 @@ trace_kernel(const Params P, const Geometry g, const Tables tb,
                 shadow_steps = s.steps;
             }
             count_steps(cnt, 2 * bounce + 1, shadow_steps);
+            if constexpr (STEPS)
+                steps_map[(2 * bounce + 1) * height * width + y * width +
+                          x] = shadow_steps;
             if (!specular && !obst && sun_on)
                 for (int i = 0; i < 3; ++i)
                     sample[i] =
@@ -627,18 +645,46 @@ extern "C" int vt_trace_launch(
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (params_host) {
         memcpy(P.p, params_host, sizeof(P.p));
-        trace_kernel<false><<<grid, block, 0, s>>>(
+        trace_kernel<false, false><<<grid, block, 0, s>>>(
             P, g, tb, palette, noise, n_slices, frame, height, width, row0,
-            row_stride, color, normal, albedo, depth, node, counters);
+            row_stride, color, normal, albedo, depth, node, counters,
+            nullptr);
     } else {
         if (!row) return static_cast<int>(cudaErrorInvalidValue);
         const cudaError_t err = cudaMemcpyToSymbolAsync(
             c_row, row, sizeof(Row), 0, cudaMemcpyDeviceToDevice, s);
         if (err != cudaSuccess) return static_cast<int>(err);
-        trace_kernel<true><<<grid, block, 0, s>>>(
+        trace_kernel<true, false><<<grid, block, 0, s>>>(
             P, g, tb, palette, noise, n_slices, 0, height, width, row0,
-            row_stride, color, normal, albedo, depth, node, counters);
+            row_stride, color, normal, albedo, depth, node, counters,
+            nullptr);
     }
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The steps-map instance, parameters by value: as vt_trace_launch's
+// by-value entry, and each pixel's steps per phase into `steps_map`,
+// (6, height, width) int32 that the caller has zeroed.
+extern "C" int vt_trace_steps_launch(
+    const float* params_host, const int* geometry_host, const int* packed,
+    const int* meta, const int* brick, const int* palette, const float* noise,
+    int n_slices, int frame, int height, int width, int row0, int row_stride,
+    float* color, float* normal, float* albedo, float* depth, int* node,
+    unsigned long long* counters, int* steps_map, void* stream) {
+    if (row0 < 0 || row_stride < 1 || !params_host || !steps_map)
+        return static_cast<int>(cudaErrorInvalidValue);
+    Params P = {};
+    memcpy(P.p, params_host, sizeof(P.p));
+    Geometry g;
+    memcpy(&g, geometry_host, sizeof(g));
+    const Tables tb = {packed, meta, brick};
+    const dim3 block(BLOCK_X, BLOCK_Y);
+    const dim3 grid((width + BLOCK_X - 1) / BLOCK_X,
+                    (height + BLOCK_Y - 1) / BLOCK_Y);
+    trace_kernel<false, true><<<grid, block, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+        P, g, tb, palette, noise, n_slices, frame, height, width, row0,
+        row_stride, color, normal, albedo, depth, node, counters, steps_map);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -647,11 +693,11 @@ extern "C" int vt_trace_launch(
 // SM, [4] threads a block.
 extern "C" int vt_trace_info(int* out) {
     cudaFuncAttributes a;
-    cudaError_t err = cudaFuncGetAttributes(&a, trace_kernel<false>);
+    cudaError_t err = cudaFuncGetAttributes(&a, trace_kernel<false, false>);
     if (err != cudaSuccess) return static_cast<int>(err);
     int per_sm = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, trace_kernel<false>, BLOCK_X * BLOCK_Y, 0);
+        &per_sm, trace_kernel<false, false>, BLOCK_X * BLOCK_Y, 0);
     if (err != cudaSuccess) return static_cast<int>(err);
     out[0] = a.numRegs;
     out[1] = (int)a.localSizeBytes;

@@ -6,7 +6,11 @@ ABI, built by the port's :mod:`voxtracer_torch.scene`) as module
 buffers, plus the static geometry both trace implementations need.
 The reference package's VMEM budget and its HBM / XLA fallback chain
 have no counterpart: the tables of every shipped scene fit the card's
-memory as they are.
+memory as they are (menger's about 1 MB; the scale probe's 480^3 shell,
+``app/scaleprobe.py``, about 147 MB).  The trace kernel addresses the
+tables with int32 arithmetic, so :class:`SceneTables` refuses a scene
+whose tables it would address past 2^31 (:func:`check_table_addressing`)
+rather than let the index wrap.
 """
 
 from __future__ import annotations
@@ -63,6 +67,41 @@ def load_voxels(name: str) -> VoxelList:
     return voxels_from_vox(voxio.load(path))
 
 
+INT32_LIMIT = 1 << 31
+TABLES = ("packed_idx", "meta_idx", "brick_idx", "palette")
+
+
+def check_table_addressing(dims, zw, l3_dims, numel, brick_dedup):
+    """Raise ``ValueError``, naming the table and its size, if a table's
+    element count or an index the trace kernel forms into it in int32
+    (``csrc/trace.cu`` ``traverse``: the meta word ``l3_col * QZW2 +
+    (qz >> 1)``, the brick words ``2 * plane + baddr`` or ``l3_col * QZ +
+    qz`` and ``plane + baddr``, the fine word ``fcol * zw + fzw``) would
+    reach 2^31.  ``numel``: each table's element count, by name; the
+    indices are bounded from the geometry alone, so a scene can be
+    checked from its tables' shapes without their data."""
+    X, Y, _ = (int(d) for d in dims)
+    QX, QY, QZ = (int(d) for d in l3_dims)
+    cols = -(-X // 4) * -(-Y // 4) * 16  # fine columns: fcol < cols
+    l3_cols = -(-QX // 4) * -(-QY // 4) * 16  # meta columns: l3_col < l3_cols
+    plane = int(numel["brick_idx"]) // (3 if brick_dedup else 2)
+    baddr = 0x8000 if brick_dedup else l3_cols * QZ
+    reach = {
+        "packed_idx": max(int(numel["packed_idx"]), cols * int(zw)),
+        "meta_idx": max(int(numel["meta_idx"]), l3_cols * -(-QZ // 2)),
+        "brick_idx": max(int(numel["brick_idx"]),
+                         (2 if brick_dedup else 1) * plane + baddr),
+        "palette": int(numel["palette"]),
+    }
+    for name, n in reach.items():
+        if n >= INT32_LIMIT:
+            raise ValueError(
+                f"scene table {name} ({int(numel[name])} elements, "
+                f"{4 * int(numel[name])} bytes) is addressed up to {n}, past "
+                f"the trace kernel's int32 indices (2^31); scene dims "
+                f"{tuple(int(d) for d in dims)}")
+
+
 class SceneTables(nn.Module):
     """``packed_idx`` (n_rows, 128), ``meta_idx`` (m_rows, 128),
     ``brick_idx`` (3 or 2, b_rows, 128) and ``palette`` (8, 128), int32.
@@ -77,7 +116,11 @@ class SceneTables(nn.Module):
     def __init__(self, scene: GridScene, device):
         super().__init__()
         t = scene.device_tables()
-        for name in ("packed_idx", "meta_idx", "brick_idx", "palette"):
+        check_table_addressing(
+            scene.values.shape, t["zw"], t["l3_dims"],
+            {name: t[name].size for name in TABLES},
+            int(t["brick_idx"].shape[0]) == 3)
+        for name in TABLES:
             arr = np.ascontiguousarray(t[name], dtype=np.int32)
             self.register_buffer(
                 name, torch.from_numpy(arr).to(torch.device(device))

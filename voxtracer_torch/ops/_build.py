@@ -151,6 +151,11 @@ def load() -> ctypes.CDLL:
     #   normal, albedo, depth, node, counters, stream) -> cudaError_t
     lib.vt_trace_launch.argtypes = [p] * 8 + [i] * 6 + [p] * 6 + [p]
     lib.vt_trace_launch.restype = ctypes.c_int
+    # vt_trace_steps_launch(params, geometry, packed, meta, brick, palette,
+    #   noise, n_slices, frame, height, width, row0, row_stride, color,
+    #   normal, albedo, depth, node, counters, steps_map, stream)
+    lib.vt_trace_steps_launch.argtypes = [p] * 7 + [i] * 6 + [p] * 8
+    lib.vt_trace_steps_launch.restype = ctypes.c_int
     # vt_trace_info(out[5])
     lib.vt_trace_info.argtypes = [p]
     lib.vt_trace_info.restype = ctypes.c_int

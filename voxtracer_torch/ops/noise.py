@@ -6,8 +6,9 @@ package's fixed slot schedule, ``voxtracer/ops/noise.py``).  The buffer
 is the baked blue-noise asset, or seeded white noise for tests; the
 planes of one frame (:func:`noise_planes`) are what the numpy oracle
 reads.  Copies of ``voxtracer.ops.noise`` and of the asset loader of
-``voxtracer.ops.bluenoise.cached_buffer``; the void-and-cluster baker is
-not ported, so a missing asset is an error here.
+``voxtracer.ops.bluenoise.cached_buffer``.  The frames load the shipped
+asset and a missing one is an error here: ``ops/bluenoise.py`` bakes
+blue noise, but not these values (another generator, another FFT).
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ def blue_noise_buffer(path: str = BLUE_NOISE_PATH) -> np.ndarray:
     ``FileNotFoundError`` if the asset is missing."""
     if not os.path.exists(path):
         raise FileNotFoundError(
-            f"blue-noise asset {path} is missing (the port does not bake it)"
+            f"blue-noise asset {path} is missing (the frames load the shipped "
+            f"asset; ops/bluenoise.py bakes other values)"
         )
     with np.load(path) as f:
         return f["noise"]

@@ -27,13 +27,22 @@ advancing micro-DDA steps; :func:`_traverse`).  The kernel's output
 also has ``slots`` (1,) int64: the lockstep step slots its warps spent
 (see ``csrc/trace.cu``), so that ``steps / (32 * slots)`` is its SIMT
 efficiency.
+
+The live-lane decay (the reference's ``phasestats --decay``,
+``trace_pallas.py:1322-1393``): :func:`render_sample_steps` adds
+``steps_map`` (6, H, W) int32, each pixel's DDA steps per phase (0 where
+its path never entered the phase), from the plain version or from the
+kernel's steps-map instance; :func:`warp_decay` groups it into the
+kernel's warps and forms each phase's curve (the same torch code for
+both).
 """
 
 from __future__ import annotations
 
 import ctypes
 import re
-from typing import Dict, Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,7 +53,7 @@ from ..engine.params import (
     DeviceRow,
     check_params,
 )
-from ..engine.scene import SceneTables
+from ..engine.scene import TABLES, SceneTables
 
 MAX_BOUNCES = 3
 RANDS_PER_BOUNCE = 8
@@ -68,6 +77,14 @@ N_COUNTERS = 2 * N_PHASES + 1
 # Rows of a band of the cyclic slab layout: csrc/trace.cu's BLOCK_Y, a
 # row of the kernel's blocks.
 BLOCK_ROWS = 16
+# csrc/trace.cu's blocks are BLOCK_COLS x BLOCK_ROWS threads; a warp is
+# 32 consecutive thread ids, two rows of a block.
+BLOCK_COLS = 16
+WARP = 32
+# The live-decay thresholds (trace_pallas.py:694): a trip counts towards
+# column f when at least max(1, ceil(f * 32)) of the warp's lanes are live.
+DECAY_FRACS = (0.75, 0.5, 0.25, 0.125, 0.03125)
+DECAY_COLUMNS = ("t75", "t50", "t25", "t12", "t03")
 
 Vec3 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -112,7 +129,8 @@ def _min0(a, s: float):
     return torch.minimum(a, a.new_full((), s))
 
 
-def _traverse(tab: SceneTables, o: Vec3, d: Vec3, mask: torch.Tensor):
+def _traverse(tab: SceneTables, o: Vec3, d: Vec3, mask: torch.Tensor,
+              ray_steps: Optional[torch.Tensor] = None):
     """March rays over the table hierarchy to their first occupied cell.
 
     Returns (hit bool, t f32, slot i32, fused bool, (nx, ny, nz) f32),
@@ -120,7 +138,8 @@ def _traverse(tab: SceneTables, o: Vec3, d: Vec3, mask: torch.Tensor):
     steps these rays took — one per outer step (a meta-word visit of a
     ray inside the grid) and one per fine cell the micro-DDA advanced.
     Rays finished early leave the working set, so each loop iteration
-    costs only the rays still marching.
+    costs only the rays still marching.  ``ray_steps`` (one int32 entry
+    per ray, zeroed), where given, receives each ray's own steps.
     """
     X, Y, Z = tab.dims
     oxi, oyi, ozi = tab.origin
@@ -211,6 +230,8 @@ def _traverse(tab: SceneTables, o: Vec3, d: Vec3, mask: torch.Tensor):
         (rox, roy, roz), (rdx, rdy, rdz) = r_o, r_d
         (rix, riy, riz), (sx, sy, sz) = r_inv, r_s
         steps += ids.numel()
+        if ray_steps is not None:
+            ray_steps[ids] += 1
 
         # 2. the node's 16-bit meta halfword
         qx, qy, qz = cx >> 2, cy >> 2, cz >> 2
@@ -248,6 +269,8 @@ def _traverse(tab: SceneTables, o: Vec3, d: Vec3, mask: torch.Tensor):
         for _ in range(MICRO_STEPS):
             run = run & ~brick_bit(cx, cy, cz)
             steps += run.sum()
+            if ray_steps is not None:
+                ray_steps[ids] += run.to(i32)
             btx = bt_axis(cx, cx + 1, ogx, sx, rox, rix)
             bty = bt_axis(cy, cy + 1, ogy, sy, roy, riy)
             btz = bt_axis(cz, cz + 1, ogz, sz, roz, riz)
@@ -391,11 +414,13 @@ def render_sample_plain(
     width: int,
     row0: int = 0,
     row_stride: int = 1,
+    steps_map: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """One path-traced sample per pixel with plain torch ops, for the
     ``height`` image rows of :func:`image_rows` (``row0`` and
     ``row_stride``: a slab of a row-sharded frame; by default the rows
-    ``0 .. height - 1``)."""
+    ``0 .. height - 1``).  ``steps_map``: also each pixel's steps per
+    phase, (6, height, width) int32 (:func:`render_sample_steps`)."""
     _check_inputs(tables, noise, height, width)
     _check_rows(row0, row_stride)
     # exact float32 values
@@ -448,12 +473,19 @@ def render_sample_plain(
     first_t = zf - 1.0
     rays = torch.zeros(N_PHASES, dtype=torch.int64, device=dev)
     steps = torch.zeros(N_PHASES, dtype=torch.int64, device=dev)
+    smap = (torch.zeros((N_PHASES, n), dtype=torch.int32, device=dev)
+            if steps_map else None)
+
+    def walk(o, d, mask, phase):
+        if smap is None:
+            return _traverse(tables, o, d, mask)
+        return _traverse(tables, o, d, mask, ray_steps=smap[phase])
 
     for bounce in range(MAX_BOUNCES):
         k0 = RANDS_PER_BOUNCE * bounce
         rays[2 * bounce] = alive.sum()
-        hit_i, t, slot, fused, (nx, ny, nz), steps[2 * bounce] = _traverse(
-            tables, (rox, roy, roz), (rdx, rdy, rdz), alive
+        hit_i, t, slot, fused, (nx, ny, nz), steps[2 * bounce] = walk(
+            (rox, roy, roz), (rdx, rdy, rdz), alive, 2 * bounce
         )
         hit = hit_i & alive
         node = torch.where(fused, LEAF_BIT, palette[slot.long()])
@@ -550,8 +582,8 @@ def render_sample_plain(
         roz = torch.where(hit, soz, roz)
 
         rays[2 * bounce + 1] = s_mask.sum()
-        obst, _, _, _, _, steps[2 * bounce + 1] = _traverse(
-            tables, (sox, soy, soz), (shx, shy, shz), s_mask
+        obst, _, _, _, _, steps[2 * bounce + 1] = walk(
+            (sox, soy, soz), (shx, shy, shz), s_mask, 2 * bounce + 1
         )
         sun_gate = diff_sel & ~obst & sun_on
         for c in range(3):
@@ -565,7 +597,7 @@ def render_sample_plain(
     def planes(vs):
         return torch.stack(vs).reshape(3, height, width)
 
-    return {
+    out = {
         "color": planes([s / ambient for s in sample]),
         "normal": planes(first_n),
         "depth": first_t.reshape(height, width),
@@ -574,6 +606,9 @@ def render_sample_plain(
         "rays": rays,
         "steps": steps,
     }
+    if steps_map:
+        out["steps_map"] = smap.reshape(N_PHASES, height, width)
+    return out
 
 
 def render_sample_cuda(
@@ -596,35 +631,14 @@ def render_sample_cuda(
     there at replay.  Launches on the current stream and does
     not synchronise.  Raises if an input is not what the kernel takes or
     the launch is refused."""
-    _check_inputs(tables, noise, height, width)
-    _check_rows(row0, row_stride)
     if not isinstance(params, DeviceRow):
         params = check_params(params, TRACE_PARAMS_LEN)
-    if tables.device.type != "cuda":
-        raise ValueError(f"CUDA kernel given tensors on {tables.device}")
-    if not noise.is_contiguous():
-        raise ValueError("noise must be contiguous")
-    for name in ("packed_idx", "meta_idx", "brick_idx", "palette"):
-        buf = getattr(tables, name)
-        if buf.dtype != torch.int32 or not buf.is_contiguous():
-            raise ValueError(f"{name} must be contiguous int32")
+    counters, out = _cuda_outputs(tables, noise, height, width, row0,
+                                  row_stride)
     from . import _build
 
     launch = _build.load().vt_trace_launch
     dev = tables.device
-    f32 = torch.float32
-    # rays (6), steps (6) and slots (1) in one zeroed allocation
-    counters = torch.zeros(N_COUNTERS, dtype=torch.int64, device=dev)
-    out = {
-        "color": torch.empty((3, height, width), dtype=f32, device=dev),
-        "normal": torch.empty((3, height, width), dtype=f32, device=dev),
-        "depth": torch.empty((height, width), dtype=f32, device=dev),
-        "albedo": torch.empty((3, height, width), dtype=f32, device=dev),
-        "node": torch.empty((height, width), dtype=torch.int32, device=dev),
-        "rays": counters[:N_PHASES],
-        "steps": counters[N_PHASES:2 * N_PHASES],
-        "slots": counters[2 * N_PHASES:],
-    }
     geometry = tables.geometry()
     n_slices = int(noise.shape[0])
     if isinstance(params, DeviceRow):
@@ -670,6 +684,148 @@ def render_sample_cuda(
 render_sample_cuda.launches = 0
 
 
+def _cuda_outputs(tables, noise, height, width, row0, row_stride):
+    """Checks a kernel launch's inputs; ``(counters, out)``: the zeroed
+    counters (rays 6, steps 6, slots 1) and the output dict, allocated on
+    the tables' device."""
+    _check_inputs(tables, noise, height, width)
+    _check_rows(row0, row_stride)
+    if tables.device.type != "cuda":
+        raise ValueError(f"CUDA kernel given tensors on {tables.device}")
+    if not noise.is_contiguous():
+        raise ValueError("noise must be contiguous")
+    for name in TABLES:
+        buf = getattr(tables, name)
+        if buf.dtype != torch.int32 or not buf.is_contiguous():
+            raise ValueError(f"{name} must be contiguous int32")
+    dev = tables.device
+    f32 = torch.float32
+    # rays (6), steps (6) and slots (1) in one zeroed allocation
+    counters = torch.zeros(N_COUNTERS, dtype=torch.int64, device=dev)
+    return counters, {
+        "color": torch.empty((3, height, width), dtype=f32, device=dev),
+        "normal": torch.empty((3, height, width), dtype=f32, device=dev),
+        "depth": torch.empty((height, width), dtype=f32, device=dev),
+        "albedo": torch.empty((3, height, width), dtype=f32, device=dev),
+        "node": torch.empty((height, width), dtype=torch.int32, device=dev),
+        "rays": counters[:N_PHASES],
+        "steps": counters[N_PHASES:2 * N_PHASES],
+        "slots": counters[2 * N_PHASES:],
+    }
+
+
+def render_sample_steps_cuda(
+    tables: SceneTables,
+    params: np.ndarray,  # (32,) f32, by value
+    noise: torch.Tensor,
+    frame: int,
+    height: int,
+    width: int,
+    row0: int = 0,
+    row_stride: int = 1,
+) -> Dict[str, torch.Tensor]:
+    """:func:`render_sample_cuda`'s by-value sample from the kernel's
+    steps-map instance, which also writes ``steps_map``: each pixel's
+    DDA steps per phase, (6, height, width) int32.  Counts its own
+    launches (``render_sample_steps_cuda.launches``); launches on the
+    current stream and does not synchronise."""
+    params = check_params(params, TRACE_PARAMS_LEN)
+    if N_PHASES * height * width >= 1 << 31:
+        raise ValueError(f"steps map of {width}x{height} past int32 offsets")
+    counters, out = _cuda_outputs(tables, noise, height, width, row0,
+                                  row_stride)
+    from . import _build
+
+    launch = _build.load().vt_trace_steps_launch
+    dev = tables.device
+    out["steps_map"] = torch.zeros((N_PHASES, height, width),
+                                   dtype=torch.int32, device=dev)
+    n_slices = int(noise.shape[0])
+    with torch.cuda.device(dev):
+        err = launch(
+            params.ctypes.data, tables.geometry().ctypes.data,
+            tables.packed_idx.data_ptr(), tables.meta_idx.data_ptr(),
+            tables.brick_idx.data_ptr(), tables.palette.data_ptr(),
+            noise.data_ptr(), n_slices, int(frame) % n_slices, height, width,
+            row0, row_stride, out["color"].data_ptr(),
+            out["normal"].data_ptr(), out["albedo"].data_ptr(),
+            out["depth"].data_ptr(), out["node"].data_ptr(),
+            counters.data_ptr(), out["steps_map"].data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"trace steps-map launch failed: cudaError {err}")
+    render_sample_steps_cuda.launches += 1
+    return out
+
+
+render_sample_steps_cuda.launches = 0
+
+
+def render_sample_steps(tables: SceneTables, params, noise, frame,
+                        height: int, width: int, row0: int = 0,
+                        row_stride: int = 1) -> Dict[str, torch.Tensor]:
+    """:func:`render_sample` with ``steps_map`` (6, height, width) int32,
+    each pixel's DDA steps per phase: the plain version for CPU tensors,
+    the kernel's steps-map instance for CUDA tensors."""
+    args = (tables, params, noise, frame, height, width, row0, row_stride)
+    kind = tables.device.type
+    if kind == "cpu":
+        return render_sample_plain(*args, steps_map=True)
+    if kind == "cuda":
+        return render_sample_steps_cuda(*args)
+    raise ValueError(f"no trace implementation for device {tables.device}")
+
+
+def warp_lanes(steps_map: torch.Tensor) -> torch.Tensor:
+    """(P, n_warps, 32) int64: a (P, H, W) per-pixel map grouped into the
+    trace kernel's warps (``csrc/trace.cu``: 16x16 blocks over the
+    launch's local rows, a warp two rows of a block), lanes past the
+    image's right or bottom edge 0 (they trace nothing)."""
+    p, h, w = steps_map.shape
+    hp = -(-h // BLOCK_ROWS) * BLOCK_ROWS
+    wp = -(-w // BLOCK_COLS) * BLOCK_COLS
+    m = torch.zeros((p, hp, wp), dtype=torch.int64, device=steps_map.device)
+    m[:, :h, :w] = steps_map
+    rows = WARP // BLOCK_COLS
+    return m.reshape(p, hp // BLOCK_ROWS, BLOCK_ROWS // rows, rows,
+                     wp // BLOCK_COLS, BLOCK_COLS).permute(
+        0, 1, 4, 2, 3, 5).reshape(p, -1, WARP)
+
+
+def decay_sums(steps_map: torch.Tensor) -> torch.Tensor:
+    """(P, 1 + len(DECAY_FRACS)) int64 on the map's device: per phase,
+    the sum over warps of the largest lane's steps (the warp's trips, as
+    ``slots`` counts them) and, for each threshold k_f =
+    max(1, ceil(f * 32)), of the k_f-th largest lane's steps (the trips
+    on which at least k_f lanes were live)."""
+    ks = [max(1, math.ceil(f * WARP)) for f in DECAY_FRACS]
+    ranked = warp_lanes(steps_map).sort(dim=-1, descending=True).values
+    return ranked[..., [0] + [k - 1 for k in ks]].sum(dim=1)
+
+
+def warp_decay(steps_map: torch.Tensor):
+    """The live-lane decay curve of each phase of a (6, H, W) steps map:
+    a list of dicts ``{"trips", "t75", "t50", "t25", "t12", "t03"}``,
+    t_f = sum over warps of the k_f-th largest lane's steps over the sum
+    of the largest (:func:`decay_sums`): the share of a phase's warp
+    trips on which at least a fraction f of the lanes were still
+    marching (0.0 for a phase without steps).
+
+    Not the reference's statistic: its t_f is the mean over tiles of a
+    ratio, and a TPU tile's lanes refill from ray queues, so its trips
+    are not one lane's steps.  Here a warp's lanes march in lockstep and
+    a lane with no ray in the phase counts 0 steps; a ratio of integer
+    sums, so the kernel's map and the plain version's compare exactly."""
+    rows = []
+    for sums in decay_sums(steps_map).tolist():
+        trips = sums[0]
+        rows.append({"trips": trips, **{
+            c: (v / trips if trips else 0.0)
+            for c, v in zip(DECAY_COLUMNS, sums[1:])}})
+    return rows
+
+
 def kernel_info() -> Dict[str, int]:
     """The kernel's resources (building the kernels if needed):
     registers, local-memory bytes and spill bytes a thread, static
@@ -695,9 +851,9 @@ def _spill_bytes() -> int:
 
     lines = _build.build_log().splitlines()
     for i, line in enumerate(lines):
-        # the by-value entry's instance, trace_kernel<false>
+        # the by-value entry's instance, trace_kernel<false, false>
         if ("Compiling entry function" in line
-                and "trace_kernelILb0E" in line):
+                and "trace_kernelILb0ELb0E" in line):
             for follow in lines[i + 1:i + 4]:
                 m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                               r"loads", follow)
