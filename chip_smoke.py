@@ -194,6 +194,19 @@ Phases (each prints one line; any failure raises and exits non-zero):
 24. the blue-noise baker (``voxtracer_torch.ops.bluenoise``, torch ops)
     on the card: ``generate(8, 128)``, its seconds, every slice a
     permutation of the ranks with a blue spectrum.
+25. the program's spans and counters (``utils/timing.py``,
+    ``engine.pipeline.counters``): the card's tests of them (``pytest
+    --noconftest -m cuda tests/test_torch_tracing.py``: the sequence
+    driver's spans, a graph captured only on first use,
+    ``graph.replays`` the frames replayed, a host wait a push and a
+    ``load_rows``); the off path's cost a span on this host (the best of
+    5 loops of 200,000 no-op spans) times the 8 sites a frame opens at
+    most (``vt.render``, its pack, 4 stages, the fetch's copy and wait),
+    the on path's a span under the profiler; and the device side of a
+    profiled view loop (menger 320x180, r=2, through
+    ``LookaheadFetch``): any ``vt.*`` event on the device is flagged
+    ``is_user_annotation`` (so the benchmark's trace reading leaves it
+    out) and none is among ``app/profile.py``'s device activities.
 
 Then (phase 15) checks that no module of the JAX package
 (``voxtracer``), JAX or Triton was imported, prints the per-kernel JSON
@@ -2566,6 +2579,71 @@ def phase_bake(smi):
     return launches
 
 
+def phase_tracing(smi):
+    """Phase 25: the spans' and counters' card tests, the spans' cost
+    on and off, and their device side in a profiled loop."""
+    from torch.autograd import DeviceType
+
+    from voxtracer_torch.app import profile
+    from voxtracer_torch.engine.camera import Camera
+    from voxtracer_torch.engine.pipeline import Renderer
+    from voxtracer_torch.engine.scene import load_scene
+    from voxtracer_torch.utils import timing
+    from voxtracer_torch.utils.fetch import LookaheadFetch
+
+    # --noconftest: tests/conftest.py imports JAX, which this card's
+    # host need not have
+    tests = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "--noconftest", "-m", "cuda",
+         "-p", "no:cacheprovider", "tests/test_torch_tracing.py"],
+        capture_output=True, text=True, cwd=HERE)
+    summary = tests.stdout.strip().splitlines()[-1:]
+    assert tests.returncode == 0, tests.stdout[-4000:] + tests.stderr[-2000:]
+
+    def per_span(n):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            with timing.span("vt.render.pack"):
+                pass
+        return (time.perf_counter() - t0) / n
+
+    off_ns = min(per_span(200_000) for _ in range(5)) * 1e9
+    with torch.autograd.profiler.profile(use_kineto=True):
+        on_us = min(per_span(2_000) for _ in range(3)) * 1e6
+
+    r = Renderer(scene=load_scene("menger"), height=180, width=320,
+                 device="cuda", denoise_radius=2, lean=True)
+    fetch = LookaheadFetch()
+    poses = [Camera(position=np.array([36.0 + i, 34.0, -5.0]),
+                    direction=np.array([-16.0, -14.0, 25.0]))
+             for i in range(6)]
+    fetch.push(r.render(poses[0]))
+    torch.cuda.synchronize()
+    with torch.autograd.profiler.profile(use_device="cuda",
+                                         use_kineto=True) as prof:
+        for cam in poses[1:]:
+            fetch.push(r.render(cam))
+        fetch.flush()
+        torch.cuda.synchronize()
+    on_host = sum(e.device_type == DeviceType.CPU and e.name.startswith("vt.")
+                  for e in prof.function_events)
+    on_device = [e for e in prof.function_events
+                 if e.device_type == DeviceType.CUDA
+                 and e.name.startswith("vt.")]
+    unflagged = [e.name for e in on_device
+                 if not getattr(e, "is_user_annotation", False)]
+    leaked = [e.name for e in profile.device_activities(prof.function_events)
+              if e.name.startswith("vt.")]
+    say(25, f"tracing tests on the card: {summary}; off path "
+            f"{off_ns:.1f} ns a span, {8 * off_ns / 1e3:.3f} us for a "
+            f"frame's 8 sites; on path {on_us:.2f} us a span under the "
+            f"profiler; {on_host} vt.* events on the host, {len(on_device)} "
+            f"on the device ({len(unflagged)} not flagged "
+            f"is_user_annotation), {len(leaked)} among app/profile.py's "
+            f"device activities [{smi}]")
+    assert on_host and not unflagged and not leaked, (unflagged, leaked)
+
+
 def check_no_jax_package():
     """The run imported nothing of the JAX package, JAX or Triton."""
     bad = sorted(m for m in sys.modules
@@ -2616,6 +2694,7 @@ def main():
     scale_counts, _ = phase_scale(smi)
     decay_counts, entries["trace_steps"] = phase_decay(smi)
     bake_counts = phase_bake(smi)
+    phase_tracing(smi)
     check_no_jax_package()
     # The trace's and the still epilogue's launches come from the main
     # path (config 2, phase 4), the trace's times and bound too, the

@@ -370,7 +370,7 @@ def test_kernel_params_are_the_rows_slice():
 def test_pipeline_counts_and_reloads_the_epilogue():
     """Replays count the epilogue kernels; hot-reload watches their
     module and rebinds their stages."""
-    kernels = pipeline.counted_kernels()
+    kernels = pipeline.counted_kernels().values()
     assert epilogue.still_epilogue_cuda in kernels
     assert epilogue.encode_cuda in kernels
     assert "voxtracer_torch.ops.epilogue" in reload.WATCHED_MODULES

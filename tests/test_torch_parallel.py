@@ -505,7 +505,7 @@ def test_slab_frames_on_one_card(cuda, n, radius, layout, height):
         state, out = render_frame(state, tables, noise, cam.rows(w, height),
                                   *PARAMS, f + 1, height, w, radius=radius)
         want.append((out, state_to_numpy(state)))
-    kernels = counted_kernels()
+    kernels = list(counted_kernels().values())
     for k in kernels:
         k.launches = 0
     got, _ = _slab_frames([cuda] * n, height, w, radius, FRAMES, layout)

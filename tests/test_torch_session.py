@@ -264,15 +264,35 @@ class _Clock:
 
 @pytest.mark.parametrize("module", [timing, jtiming], ids=["port", "jax"])
 def test_timers_on_a_faked_clock(module, monkeypatch):
-    """``Stopwatch``, ``FpsCounter`` and ``StageTimer`` of the port
-    behave as the JAX package's: one scenario, both modules."""
+    """``FpsCounter`` and ``StageTimer`` of the port behave as the JAX
+    package's: one scenario, both modules.  Beside them, the JAX
+    package's ``Stopwatch`` (the port has none: nothing read it) and the
+    port's ``span``: while no profiler records, the one shared no-op,
+    which reads no clock; under one, a range in the profiler's events,
+    which reads none either (the profiler keeps its own clock)."""
     clock = _Clock()
     monkeypatch.setattr(module.time, "perf_counter", clock)
-    watch = module.Stopwatch()
-    clock.now += 0.5
-    assert watch.tick() == 0.5
-    clock.now += 0.25
-    assert watch.tick() == 0.25
+    if module is jtiming:
+        watch = module.Stopwatch()
+        clock.now += 0.5
+        assert watch.tick() == 0.5
+        clock.now += 0.25
+        assert watch.tick() == 0.25
+    else:
+        assert not hasattr(module, "Stopwatch")
+        reads = []
+        monkeypatch.setattr(module.time, "perf_counter",
+                            lambda: reads.append(clock.now) or clock.now)
+        off = module.span("vt.render", {"frame": 1})
+        assert off is module.span("vt.render.pack")
+        with off:
+            clock.now += 0.5
+        with torch.autograd.profiler.profile(use_kineto=True) as prof:
+            with module.span("vt.render.pack"):
+                clock.now += 0.25
+        assert reads == []
+        assert [e.name for e in prof.function_events] == ["vt.render.pack"]
+        monkeypatch.setattr(module.time, "perf_counter", clock)
 
     fps = module.FpsCounter(window=0.25)
     clock.now += 0.1

@@ -45,7 +45,7 @@ import torch
 from ..engine import snapshot as snapshot_mod
 from ..engine.camera import Camera
 from ..engine.params import DenoiseParams, RenderParams, TemporalParams
-from ..engine.pipeline import Renderer
+from ..engine.pipeline import Renderer, counters
 from ..engine.reload import KernelWatcher, renderer_hook
 from ..engine.scene import available_scenes, load_scene, load_voxels
 from ..io.image import write_png
@@ -129,7 +129,9 @@ def build_parser() -> argparse.ArgumentParser:
     io_g.add_argument("--resume", default=None,
                       help="resume accumulation from a snapshot")
     io_g.add_argument("--stats", action="store_true",
-                      help="print per-stage timing at the end")
+                      help="print per-stage timing and the run's counters "
+                           "(launches a frame, graph captures and "
+                           "replays, kernel builds, host waits) at the end")
     io_g.add_argument("--profile", default=None, metavar="DIR",
                       help="capture a torch.profiler trace of the render "
                            "loop into DIR (trace.json, chrome format)")
@@ -276,6 +278,7 @@ def main(argv=None) -> int:
     camera = fixed_cam
     # Stages are closed by a device synchronise only under --stats: a
     # wait per frame would keep the host from running ahead of the card.
+    counts = counters()
     with _profiled(args.profile, renderer.device):
         t_start = time.perf_counter()
         batched = 0
@@ -327,7 +330,18 @@ def main(argv=None) -> int:
     if args.stats:
         for name, avg in timer.report().items():
             print(f"  stage {name}: {avg * 1e3:.2f} ms avg")
+        print_counters(counts, counters(), args.frames)
     return 0
+
+
+def print_counters(before, after, frames: int):
+    """The counters' growth over a run of ``frames`` frames, launches
+    also a frame."""
+    for name, n in after.items():
+        delta = n - before.get(name, 0)
+        per = (f" ({delta / frames:.2f} a frame)"
+               if name.startswith("launches.") and frames else "")
+        print(f"  counter {name}: {delta}{per}")
 
 
 def _legacy_whitted(args, camera, width, height) -> int:

@@ -67,14 +67,15 @@ def union_us(intervals, lo: float, hi: float) -> float:
 
 def device_activities(events):
     """The device's own activities among profiler events: not the
-    device-side copies of ``record_function`` ranges, nor the
-    profiler's buffer bookkeeping."""
+    device-side copies of ``record_function`` ranges, nor anything named
+    for the program's spans (``vt.*``, host ranges that have no device
+    copy today), nor the profiler's buffer bookkeeping."""
     return [
         e for e in events
         if e.device_type == DeviceType.CUDA
         and not getattr(e, "is_user_annotation", False)
         and e.name != RANGE
-        and not e.name.startswith("Activity Buffer")
+        and not e.name.startswith(("vt.", "Activity Buffer"))
     ]
 
 

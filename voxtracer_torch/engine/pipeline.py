@@ -43,6 +43,15 @@ replay of a captured CUDA graph whose stages read the row at a device
 cursor (:class:`SequenceRunner`), on the CPU a loop over the same
 stages reads row i.  All three run :func:`frame_stages`, so a sequence
 is bit-equal to as many ``render()`` calls.
+
+Under a profiler the frame driver opens the spans ``vt.render`` (its
+frame number), ``vt.render.pack`` (the row) and one
+``vt.stage.<stage>`` a stage call, the sequence driver ``vt.sequence``
+(first frame, count) and ``vt.sequence.pack``, ``.rows``, ``.capture``
+(where a graph is captured), ``.state_in``, ``.replay`` and
+``.state_out`` (:func:`voxtracer_torch.utils.timing.span`).  Graph
+captures and replays and the rows' upload add to the counts that
+:func:`counters` snapshots.
 """
 
 from __future__ import annotations
@@ -59,6 +68,7 @@ from ..ops import reproject as reproject_op
 from ..ops import temporal as temporal_op
 from ..ops import trace as trace_op
 from ..ops.noise import blue_noise_buffer
+from ..utils.timing import COUNTS, span
 from .camera import Camera
 from .params import (
     DENOISE_PARAMS_LEN,
@@ -166,22 +176,28 @@ def frame_stages(
         temporal_p = row[ROW_TEMPORAL:ROW_TEMPORAL + TEMPORAL_PARAMS_LEN]
         denoise_p = row[ROW_DENOISE:ROW_DENOISE + DENOISE_PARAMS_LEN]
         frame = int(row[ROW_FRAME:ROW_FRAME + 1].view(np.int32)[0])
-    gbuf = trace(tables, trace_p, noise, frame, height, width)
+    with span("vt.stage.trace"):
+        gbuf = trace(tables, trace_p, noise, frame, height, width)
     planes = (gbuf["color"], gbuf["normal"], gbuf["depth"], *history)
     # radius 0: the modulate rides the encode (or the still epilogue)
     albedo = None if radius else gbuf["albedo"]
     if not reproject:
-        blended, next_blend, out, image = still_epilogue(
-            *planes, albedo, row, keep_linear, dest, in_place=in_place)
+        with span("vt.stage.still_epilogue"):
+            blended, next_blend, out, image = still_epilogue(
+                *planes, albedo, row, keep_linear, dest, in_place=in_place)
         if not radius:
             return gbuf, blended, next_blend, out, image
     else:
-        blended, next_blend = temporal(*planes, temporal_p)
+        with span("vt.stage.temporal"):
+            blended, next_blend = temporal(*planes, temporal_p)
     out = blended
     if radius:
-        out = denoise(blended, gbuf["normal"], gbuf["depth"], gbuf["albedo"],
-                      gbuf["node"], denoise_p, radius)
-    image, out = encode(out, height, width, albedo, row, keep_linear, dest)
+        with span("vt.stage.denoise"):
+            out = denoise(blended, gbuf["normal"], gbuf["depth"],
+                          gbuf["albedo"], gbuf["node"], denoise_p, radius)
+    with span("vt.stage.encode"):
+        image, out = encode(out, height, width, albedo, row, keep_linear,
+                            dest)
     return gbuf, blended, next_blend, out, image
 
 
@@ -208,10 +224,11 @@ def render_frame(
     reprojecting blend), ``denoise``, ``still_epilogue`` and ``encode``
     are the device stages; only a comparison of the kernels with their
     plain versions replaces them."""
-    row = pack_frame_rows(
-        [cam], state["old_cam"], state["history_valid"], frame_number,
-        render_params, temporal_params, denoise_params,
-    )[0]
+    with span("vt.render.pack"):
+        row = pack_frame_rows(
+            [cam], state["old_cam"], state["history_valid"], frame_number,
+            render_params, temporal_params, denoise_params,
+        )[0]
     gbuf, blended, next_blend, out, image = frame_stages(
         tuple(state[k] for k in STATE_PLANES), tables, noise, row,
         state["history_valid"] and camera_moved(state, cam),
@@ -244,19 +261,30 @@ def render_frame(
     return new_state, outputs
 
 
-def counted_kernels():
-    """The frame kernels' wrappers: a replayed graph adds what they
-    counted while it was captured.  A stage swapped for another callable
-    is accounted as far as it launches through these.  Looked up at each
-    call: a hot-reloaded module (``engine/reload.py``) has new ones."""
-    return (
-        trace_op.render_sample_cuda,
-        temporal_op.temporal_blend_reproject_cuda,
-        denoise_op.denoise_cuda,
-        reproject_op.resample_cuda,
-        epilogue_op.still_epilogue_cuda,
-        epilogue_op.encode_cuda,
-    )
+def counted_kernels() -> Dict[str, Callable]:
+    """The frame kernels' wrappers by stage: a replayed graph adds what
+    they counted while it was captured.  A stage swapped for another
+    callable is accounted as far as it launches through these.  Looked
+    up at each call: a hot-reloaded module (``engine/reload.py``) has
+    new ones."""
+    return {
+        "trace": trace_op.render_sample_cuda,
+        "temporal": temporal_op.temporal_blend_reproject_cuda,
+        "denoise": denoise_op.denoise_cuda,
+        "resample": reproject_op.resample_cuda,
+        "still_epilogue": epilogue_op.still_epilogue_cuda,
+        "encode": epilogue_op.encode_cuda,
+    }
+
+
+def counters() -> Dict[str, int]:
+    """The counts so far, each monotone: ``launches.<stage>`` of each
+    frame kernel (its wrapper's ``launches``; a hot-reloaded wrapper
+    takes its predecessor's over), then ``utils.timing.COUNTS``."""
+    out = {f"launches.{stage}": kernel.launches
+           for stage, kernel in counted_kernels().items()}
+    out.update(COUNTS)
+    return out
 
 
 class SequenceRunner:
@@ -316,7 +344,9 @@ class SequenceRunner:
                 self.frames = torch.zeros(
                     (n_frames, self.height, self.width, 3),
                     dtype=torch.uint8, device=dev)
+        # from pageable memory: the host waits for the copy
         self.rows[:len(rows)].copy_(torch.from_numpy(rows))
+        COUNTS["host.waits"] += 1
         self.host_row = rows[0].copy()
 
     def load_state(self, state: Dict, stack: bool):
@@ -354,24 +384,26 @@ class SequenceRunner:
         become the graph's count per replay."""
         if reproject in self.graphs:
             return
-        self.cursor.zero_()
-        self.slot.zero_()
-        self.frame(reproject)
-        self.cursor.zero_()
-        self.slot.zero_()
-        if self.pool is None:
-            self.pool = torch.cuda.graph_pool_handle()
-        kernels = counted_kernels()
-        before = [k.launches for k in kernels]
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(graph, pool=self.pool):
-                self.frame(reproject)
-            per_replay = [k.launches - n for k, n in zip(kernels, before)]
-        finally:  # a capture that raised launched nothing either
-            for kernel, n in zip(kernels, before):
-                kernel.launches = n
-        self.graphs[reproject] = (graph, per_replay)
+        with span("vt.sequence.capture"):
+            self.cursor.zero_()
+            self.slot.zero_()
+            self.frame(reproject)
+            self.cursor.zero_()
+            self.slot.zero_()
+            if self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
+            kernels = counted_kernels().values()
+            before = [k.launches for k in kernels]
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.graph(graph, pool=self.pool):
+                    self.frame(reproject)
+                per_replay = [k.launches - n for k, n in zip(kernels, before)]
+            finally:  # a capture that raised launched nothing either
+                for kernel, n in zip(kernels, before):
+                    kernel.launches = n
+            self.graphs[reproject] = (graph, per_replay)
+            COUNTS["graph.captures"] += 1
 
     def run(self, segments, graph: bool):
         """Every frame of the loaded path, segment by segment."""
@@ -383,7 +415,8 @@ class SequenceRunner:
             captured, per_replay = self.graphs[reproject]
             for _ in range(start, end):
                 captured.replay()
-            for kernel, n in zip(counted_kernels(), per_replay):
+            COUNTS["graph.replays"] += end - start
+            for kernel, n in zip(counted_kernels().values(), per_replay):
                 kernel.launches += n * (end - start)
 
 
@@ -459,28 +492,30 @@ class Renderer:
     def render(
         self, camera: Camera, lean: Optional[bool] = None
     ) -> Dict[str, torch.Tensor]:
-        cam = camera.rows(self.width, self.height)
-        moved = camera_moved(self.state, cam)
-        self.state, outputs = render_frame(
-            self.state,
-            self.tables,
-            self.noise,
-            cam,
-            self.render_params,
-            self.temporal_params,
-            self.denoise_params,
-            self.frame_number + 1,
-            self.height,
-            self.width,
-            radius=self.denoise_radius,
-            lean=self.lean if lean is None else lean,
-            trace=self.trace,
-            temporal=self.temporal,
-            denoise=self.denoise,
-            still_epilogue=self.still_epilogue,
-            encode=self.encode,
-        )
-        self.frame_number += 1
+        frame = self.frame_number + 1
+        with span("vt.render", {"frame": frame}):
+            cam = camera.rows(self.width, self.height)
+            moved = camera_moved(self.state, cam)
+            self.state, outputs = render_frame(
+                self.state,
+                self.tables,
+                self.noise,
+                cam,
+                self.render_params,
+                self.temporal_params,
+                self.denoise_params,
+                frame,
+                self.height,
+                self.width,
+                radius=self.denoise_radius,
+                lean=self.lean if lean is None else lean,
+                trace=self.trace,
+                temporal=self.temporal,
+                denoise=self.denoise,
+                still_epilogue=self.still_epilogue,
+                encode=self.encode,
+            )
+        self.frame_number = frame
         self.still_sample = 1 if moved else self.still_sample + 1
         return outputs
 
@@ -557,39 +592,48 @@ class Renderer:
         """The frames of a camera path: all of them stacked, or the last
         one.  State and counters advance as in ``len(cameras)`` calls of
         :meth:`render`."""
-        rows, flags, still, last = self._pack_sequence(cameras)
-        n = len(rows)
-        if self.device.type == "cuda":
-            segments = self._segments(flags)
-            runner = self._sequence_runner()
-            runner.load_rows(rows, n if stack else 1)
-            if graph:
-                for reproject in sorted({seg[2] for seg in segments}):
-                    runner.capture(reproject)
-            runner.load_state(self.state, stack)
-            runner.run(segments, graph)
-            # out of the buffers the next sequence overwrites
-            self.state.update(
-                {k: runner.state[k].clone() for k in STATE_PLANES})
-            frames = (runner.frames[:n] if stack else runner.frames[0]).clone()
-        else:
-            history = tuple(self.state[k] for k in STATE_PLANES)
-            images = []
-            for row, reproject in zip(rows, flags):
-                gbuf, blended, next_blend, _, image = frame_stages(
-                    history, self.tables, self.noise, row, reproject,
-                    self.height, self.width, self.denoise_radius,
-                    *self._stages(),
-                )
-                history = (blended, next_blend, gbuf["depth"])
-                if stack:
-                    images.append(image)
-                else:
-                    images = [image]
-            self.state.update(zip(STATE_PLANES, history))
-            frames = torch.stack(images) if stack else images[0]
-        self._finish_sequence(n, still, last)
-        return frames
+        with span("vt.sequence", {"frame": self.frame_number + 1,
+                                  "count": len(cameras)}):
+            cuda = self.device.type == "cuda"
+            with span("vt.sequence.pack"):
+                rows, flags, still, last = self._pack_sequence(cameras)
+                segments = self._segments(flags) if cuda else None
+            n = len(rows)
+            if cuda:
+                runner = self._sequence_runner()
+                with span("vt.sequence.rows"):
+                    runner.load_rows(rows, n if stack else 1)
+                if graph:
+                    for reproject in sorted({seg[2] for seg in segments}):
+                        runner.capture(reproject)
+                with span("vt.sequence.state_in"):
+                    runner.load_state(self.state, stack)
+                with span("vt.sequence.replay"):
+                    runner.run(segments, graph)
+                # out of the buffers the next sequence overwrites
+                with span("vt.sequence.state_out"):
+                    self.state.update(
+                        {k: runner.state[k].clone() for k in STATE_PLANES})
+                    frames = (runner.frames[:n] if stack
+                              else runner.frames[0]).clone()
+            else:
+                history = tuple(self.state[k] for k in STATE_PLANES)
+                images = []
+                for row, reproject in zip(rows, flags):
+                    gbuf, blended, next_blend, _, image = frame_stages(
+                        history, self.tables, self.noise, row, reproject,
+                        self.height, self.width, self.denoise_radius,
+                        *self._stages(),
+                    )
+                    history = (blended, next_blend, gbuf["depth"])
+                    if stack:
+                        images.append(image)
+                    else:
+                        images = [image]
+                self.state.update(zip(STATE_PLANES, history))
+                frames = torch.stack(images) if stack else images[0]
+            self._finish_sequence(n, still, last)
+            return frames
 
     def render_sequence(
         self, cameras: Sequence[Camera], graph: bool = True

@@ -67,6 +67,19 @@ def renderer_hook(renderer) -> Callable[[], None]:
     return on_reload
 
 
+def _reload(module):
+    """``importlib.reload(module)``; its kernel wrappers' ``launches``
+    go on from their predecessors', so that ``engine.pipeline.counters``
+    never decreases."""
+    launches = {k: v.launches for k, v in vars(module).items()
+                if callable(v) and hasattr(v, "launches")}
+    importlib.reload(module)
+    for k, n in launches.items():
+        new = getattr(module, k, None)
+        if hasattr(new, "launches"):
+            new.launches = n
+
+
 class KernelWatcher:
     """Polls the kernel sources' mtimes; on a change rebuilds the CUDA
     library or reloads the wrapper modules, then calls ``on_reload``.
@@ -135,7 +148,7 @@ class KernelWatcher:
             if name not in self.modules:
                 continue
             try:
-                importlib.reload(sys.modules[name])
+                _reload(sys.modules[name])
                 log.info("reloaded kernel module %s", name)
             except Exception:
                 log.exception("reload of %s failed; keeping previous "

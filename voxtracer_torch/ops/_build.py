@@ -21,6 +21,8 @@ import subprocess
 import tempfile
 import time
 
+from ..utils.timing import COUNTS
+
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
@@ -139,8 +141,10 @@ def build_log() -> str:
 @functools.lru_cache(maxsize=None)
 def load() -> ctypes.CDLL:
     """Build (if needed) and load the kernels; declares every entry
-    point's C signature."""
+    point's C signature.  Counted in ``kernel.builds``: it runs again
+    only after a hot-reload clears its cache."""
     lib = ctypes.CDLL(build())
+    COUNTS["kernel.builds"] += 1
     p, i = ctypes.c_void_p, ctypes.c_int
     # Each frame kernel takes its parameters by value (params, a host
     # pointer) or, where that is null (for the denoise: besides it), from

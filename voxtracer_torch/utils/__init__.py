@@ -1,2 +1,2 @@
 from .log import setup_logging  # noqa: F401
-from .timing import FpsCounter, StageTimer, Stopwatch  # noqa: F401
+from .timing import FpsCounter, StageTimer, span  # noqa: F401

@@ -30,6 +30,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .timing import COUNTS, span
+
 
 class LookaheadFetch:
     """``push(out)`` starts the host copy of a frame's ``image`` and
@@ -46,7 +48,8 @@ class LookaheadFetch:
              ) -> Optional[Tuple[np.ndarray, int]]:
         image, rays = out["image"], out["rays"]
         if image.device.type == "cuda":
-            current = self._copy(image, rays)
+            with span("vt.fetch.copy"):
+                current = self._copy(image, rays)
         else:
             current = (image, rays, None)
         previous, self._pending = self._pending, current
@@ -82,5 +85,7 @@ class LookaheadFetch:
     def _read(slot) -> Tuple[np.ndarray, int]:
         image, rays, event = slot
         if event is not None:
-            event.synchronize()
+            with span("vt.fetch.wait"):
+                event.synchronize()
+            COUNTS["host.waits"] += 1
         return image.numpy(), int(rays.sum())

@@ -1,33 +1,60 @@
-"""Frame timing instrumentation.
+"""Frame timing instrumentation, and the program's spans and counts.
 
-Counterpart of :mod:`voxtracer.utils.timing`: ``Stopwatch`` for
-per-frame dt, ``FpsCounter`` (0.25 s refresh window) for an fps readout
-and, where the caller hands it each frame's traced rays, the exact ray
-rate of the same window, and ``StageTimer`` for per-stage wall times.
-PyTorch returns before the device finishes, so a device stage is closed by
+Counterpart of :mod:`voxtracer.utils.timing`: ``FpsCounter`` (0.25 s
+refresh window) for an fps readout and, where the caller hands it each
+frame's traced rays, the exact ray rate of the same window, and
+``StageTimer`` for per-stage wall times.  PyTorch returns before the
+device finishes, so a device stage is closed by
 ``torch.cuda.synchronize`` on the device its result lies on; a stage on
 the CPU needs no closing.
+
+The port adds two instruments of its own layers:
+
+* :func:`span` marks a stretch of host work by name (``vt.render``,
+  ``vt.stage.trace``, ``vt.fetch.wait``, ...).  It records only while a
+  profiler records (``torch.autograd.profiler.profile``,
+  ``torch.profiler.profile``): then it is a record-function range, which
+  lands in the profiler's trace beside the device's activities and on
+  their clock; a root span's ``args`` (e.g. the frame number) are the
+  range's keyword inputs, kept where the profiler records shapes.
+  Spans nest by time.  Otherwise it returns one shared no-op after a
+  single check: nothing is built.  The range is the profiler's fast
+  one (about a microsecond on the host; ``record_function`` costs ten).
+* :data:`COUNTS` holds monotone counts, always on, one int add a site:
+  the CUDA graphs captured and replayed, the kernel library's loads, and
+  the places the host blocked on the device.  ``engine.pipeline.counters``
+  snapshots them with the frame kernels' launches.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _profiler
+
+COUNTS: Dict[str, int] = {
+    "graph.captures": 0,  # ``SequenceRunner.capture``: a graph captured
+    "graph.replays": 0,  # ``SequenceRunner.run``: frames replayed
+    "kernel.builds": 0,  # ``ops/_build.load``: the library built or loaded
+    "host.waits": 0,  # the host blocked on the device (fetch, rows)
+}
+
+_OFF = contextlib.nullcontext()
 
 
-class Stopwatch:
-    def __init__(self):
-        self._prev = time.perf_counter()
-
-    def tick(self) -> float:
-        """Seconds since the previous tick."""
-        now = time.perf_counter()
-        dt = now - self._prev
-        self._prev = now
-        return dt
+def span(name: str, args: Optional[Dict[str, int]] = None):
+    """A context that marks its block as ``name`` while a profiler
+    records, and the one shared no-op otherwise."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    if args is None:
+        return _RecordFunctionFast(name)
+    return _RecordFunctionFast(name, (), args)
 
 
 class FpsCounter:
