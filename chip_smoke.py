@@ -207,6 +207,14 @@ Phases (each prints one line; any failure raises and exits non-zero):
     ``LookaheadFetch``): any ``vt.*`` event on the device is flagged
     ``is_user_annotation`` (so the benchmark's trace reading leaves it
     out) and none is among ``app/profile.py``'s device activities.
+26. the frame driver's direct path (``engine/direct.py``,
+    ``csrc/frame.cu``): ``app/renderbench.py`` ``direct_against_eager``
+    renders a seeded 64-frame orbit with holds and moves through the
+    direct path and through the eager stages at menger 1280x720 r=0 and
+    monu9 1920x1080 r=2: every output and state plane bit-equal, the
+    same kernels launched, ``frames.direct`` 64 on the direct path
+    alone; then the host's us a lean ``render()`` of each path and the
+    device's ms a frame, 4 turns each, in turns.
 
 Then (phase 15) checks that no module of the JAX package
 (``voxtracer``), JAX or Triton was imported, prints the per-kernel JSON
@@ -2644,6 +2652,33 @@ def phase_tracing(smi):
     assert on_host and not unflagged and not leaked, (unflagged, leaked)
 
 
+def phase_direct(smi):
+    """Phase 26: the direct path against the eager stages on the card,
+    bit for bit, and the host's time of each."""
+    from voxtracer_torch.app.renderbench import direct_against_eager
+
+    for scene, w, h, radius in (("menger", 1280, 720, 0),
+                                ("monu9", 1920, 1080, 2)):
+        got = direct_against_eager(scene, w, h, radius)
+        fast, eager = got["counts"]["direct"], got["counts"]["eager"]
+        launches = [{k: n for k, n in c.items() if k.startswith("launches.")}
+                    for c in (fast, eager)]
+        say(26, f"direct path {scene} {w}x{h} r={radius}: "
+                f"{got['frames']} frames, {got['n_differ']} outputs or "
+                f"state planes differ from the eager path's {got['differ']}; "
+                f"launches {launches[0]} (eager {launches[1]}), "
+                f"frames.direct {fast.get('frames.direct', 0)} / "
+                f"{eager.get('frames.direct', 0)}; host us a render() "
+                f"direct {got['host_us']['direct']} eager "
+                f"{got['host_us']['eager']}; device ms a frame direct "
+                f"{got['frame_ms']['direct']} eager {got['frame_ms']['eager']}"
+                f" [{smi}]")
+        assert got["n_differ"] == 0, got["differ"]
+        assert launches[0] == launches[1], launches
+        assert fast["frames.direct"] == got["frames"]
+        assert "frames.direct" not in eager
+
+
 def check_no_jax_package():
     """The run imported nothing of the JAX package, JAX or Triton."""
     bad = sorted(m for m in sys.modules
@@ -2695,6 +2730,7 @@ def main():
     decay_counts, entries["trace_steps"] = phase_decay(smi)
     bake_counts = phase_bake(smi)
     phase_tracing(smi)
+    phase_direct(smi)
     check_no_jax_package()
     # The trace's and the still epilogue's launches come from the main
     # path (config 2, phase 4), the trace's times and bound too, the

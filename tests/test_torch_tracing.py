@@ -153,7 +153,8 @@ def test_counters_follow_the_wrappers_and_never_decrease(monkeypatch):
     assert set(before) == {
         "launches.trace", "launches.temporal", "launches.denoise",
         "launches.resample", "launches.still_epilogue", "launches.encode",
-        "graph.captures", "graph.replays", "kernel.builds", "host.waits"}
+        "graph.captures", "graph.replays", "kernel.builds", "host.waits",
+        "frames.direct"}
     assert all(isinstance(v, int) for v in before.values())
     monkeypatch.setattr(trace_op.render_sample_cuda, "launches",
                         trace_op.render_sample_cuda.launches + 5)

@@ -550,6 +550,120 @@ def measure_epilogue(tree: str, label: str):
                       "device": smi}), flush=True)
 
 
+def held_orbit(scene, frames: int, seed: int):
+    """``frames`` cameras of the orbit path from a seeded start, in runs
+    of 1-8 frames that move (1/60 s a frame) or hold the pose of the
+    frame before them, in turn, a moving run first."""
+    import numpy as np
+
+    from voxtracer_torch.app import camera_paths
+
+    rng = np.random.default_rng(seed)
+    path = camera_paths.orbit(scene)
+    t = float(rng.uniform(0.0, 8.0))
+    cams, moving = [path(t)], True
+    while len(cams) < frames:
+        for _ in range(int(rng.integers(1, 9))):
+            if moving:
+                t += 1.0 / 60.0
+            cams.append(path(t) if moving else cams[-1])
+        moving = not moving
+    return cams[:frames]
+
+
+def _eager_trace(*args):
+    """The trace stage as another callable than the package's own, which
+    keeps a renderer on the eager stages (``engine/direct.py``
+    ``engages``)."""
+    from voxtracer_torch.ops import trace
+
+    return trace.render_sample(*args)
+
+
+def _same(a, b) -> bool:
+    """Bit for bit: a tensor's shape, type, strides and bytes, a host
+    value's type and bytes."""
+    import numpy as np
+    import torch
+
+    if not torch.is_tensor(a):
+        return type(a) is type(b) and (
+            np.asarray(a).tobytes() == np.asarray(b).tobytes())
+    return (torch.is_tensor(b) and a.shape == b.shape and a.dtype == b.dtype
+            and a.stride() == b.stride() and torch.equal(
+                a.contiguous().view(torch.uint8),
+                b.contiguous().view(torch.uint8)))
+
+
+def direct_against_eager(scene_name: str, width: int, height: int,
+                         radius: int, frames: int = 64, seed: int = 15,
+                         turns: int = 4):
+    """The same seeded orbit of ``frames`` frames (:func:`held_orbit`)
+    through ``Renderer.render``'s direct path and its eager stages, on
+    the card: every frame's outputs (all of them: not lean) and state
+    compared bit for bit, the counters' growth on each path, then the
+    host's us a lean ``render()`` call (the viewers') of each, median
+    over the path's calls, ``turns`` times in turns
+    (direct, eager, eager, direct, ...), over bursts of the path that
+    wait for nothing (the device synchronised between them), and the
+    device's ms a frame from CUDA events around each burst."""
+    import collections
+
+    import torch
+
+    from voxtracer_torch.engine.pipeline import Renderer, counters
+    from voxtracer_torch.engine.scene import load_scene
+
+    scene = load_scene(scene_name)
+    cams = held_orbit(scene, frames, seed)
+    kw = dict(scene=scene, height=height, width=width, device="cuda",
+              denoise_radius=radius)
+    paths = {"direct": Renderer(**kw), "eager": Renderer(**kw)}
+    paths["eager"].trace = _eager_trace
+    counts = {name: collections.Counter() for name in paths}
+    differ = []
+    for i, cam in enumerate(cams):
+        got = {}
+        for name, r in paths.items():
+            before = counters()
+            out = r.render(cam, lean=False)
+            counts[name].update({k: v - before[k]
+                                 for k, v in counters().items()})
+            got[name] = (out, r.state)
+        for part, x, y in zip(("output", "state"), got["direct"],
+                              got["eager"]):
+            if x.keys() != y.keys():
+                differ.append((i, part, "keys"))
+            else:
+                differ += [(i, part, k) for k in x if not _same(x[k], y[k])]
+    host = {"direct": [], "eager": []}
+    device = {"direct": [], "eager": []}
+    order = ["direct", "eager"]
+    for turn in range(turns):
+        for name in (order if turn % 2 == 0 else order[::-1]):
+            r = paths[name]
+            r.reset_accumulation()
+            r.render(cams[0], lean=True)
+            torch.cuda.synchronize()
+            start, end = _events()
+            calls = []
+            start.record()
+            for cam in cams:
+                t0 = time.perf_counter()
+                r.render(cam, lean=True)
+                calls.append(time.perf_counter() - t0)
+            end.record()
+            end.synchronize()
+            host[name].append(statistics.median(calls) * 1e6)
+            device[name].append(start.elapsed_time(end) / len(cams))
+    return {"scene": scene_name, "size": f"{width}x{height}",
+            "radius": radius, "frames": frames, "seed": seed,
+            "differ": differ[:10], "n_differ": len(differ),
+            "counts": {name: {k: n for k, n in c.items() if n}
+                       for name, c in counts.items()},
+            "host_us": host, "frame_ms": device}
+
+
 def measure(tree: str, label: str):
     sys.path.insert(0, tree)
     import torch

@@ -204,17 +204,10 @@ def pack_frame_rows(
     The rest is packed once per parameter set."""
     cams = np.asarray(cams, np.float32).reshape(-1, 4, 3)
     old = np.asarray(prev_cam if history_valid else cams[0], np.float32)
-    cam0 = cams[0].reshape(12)
-    first = _constant_row(rp, tp, dp).copy()
-    first[ROW_TRACE:ROW_TRACE + 12] = cam0
-    first[ROW_DENOISE:ROW_DENOISE + 12] = cam0
-    t = first[ROW_TEMPORAL:ROW_DENOISE]
-    t[0:12] = cam0
-    t[12:24] = old.reshape(12)
-    t[24:33] = inv3(np.stack([old[1], old[2], old[3]], axis=1)).reshape(9)
-    t[36] = float(bool(history_valid))
+    first = np.empty(ROW_LEN, np.float32)
+    fill_frame_row(first, cams[0], old, history_valid, first_frame,
+                   _constant_row(rp, tp, dp), old_basis_inverse(old))
     if len(cams) == 1:  # render()'s frame: nothing to repeat
-        first[ROW_FRAME:ROW_FRAME + 1].view(np.int32)[0] = first_frame
         return first[None]
 
     rows = np.tile(first, (len(cams), 1))
@@ -229,6 +222,33 @@ def pack_frame_rows(
     later[:, 24:33] = _inv3_rows(cams[:-1])
     later[:, 36] = 1.0
     return rows
+
+
+def old_basis_inverse(old: np.ndarray) -> np.ndarray:
+    """(9,) float32: the temporal vector's slots 24-32, the inverse of
+    the basis columns [right up forward] of the (4, 3) camera rows
+    ``old``."""
+    return inv3(np.stack([old[1], old[2], old[3]], axis=1)).reshape(9)
+
+
+def fill_frame_row(row: np.ndarray, cam: np.ndarray, old: np.ndarray,
+                   history_valid: bool, frame: int, constant: np.ndarray,
+                   old_inverse: np.ndarray):
+    """One frame's row into ``row`` (ROW_LEN,) float32: ``constant``
+    (:func:`_constant_row` of the frame's parameter sets), the camera
+    rows ``cam``, the old camera ``old`` (float32 (4, 3)) and its
+    :func:`old_basis_inverse`, the validity flag and the frame
+    number."""
+    cam0 = np.asarray(cam, np.float32).reshape(12)
+    row[:] = constant
+    row[ROW_TRACE:ROW_TRACE + 12] = cam0
+    row[ROW_DENOISE:ROW_DENOISE + 12] = cam0
+    t = row[ROW_TEMPORAL:ROW_DENOISE]
+    t[0:12] = cam0
+    t[12:24] = old.reshape(12)
+    t[24:33] = old_inverse
+    t[36] = float(bool(history_valid))
+    row[ROW_FRAME:ROW_FRAME + 1].view(np.int32)[0] = frame
 
 
 def _constant_row(rp: RenderParams, tp: TemporalParams,

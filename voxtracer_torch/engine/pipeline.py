@@ -20,6 +20,9 @@ frame runs these stages, planar (3, H, W) throughout:
 On the card a frame is 2 launches (still, r = 0: trace + still
 epilogue), 3 (moving, r = 0: + temporal + encode) or 4 (r >= 1: trace,
 temporal kernel or the still epilogue's blend alone, denoise, encode).
+``Renderer.render`` there enqueues them with one native call from a
+frame plan checked once (:mod:`.direct`), the same kernels on the same
+inputs; stages swapped for others run through :func:`frame_stages`.
 
 The first frame after construction, ``reset_accumulation`` or a resize
 has no live history.  The reference sends it through the moving
@@ -41,17 +44,20 @@ the reference's ``lax.scan`` over ``packed_seq``) pack a whole camera
 path; on the card the rows go to the device once and every frame is one
 replay of a captured CUDA graph whose stages read the row at a device
 cursor (:class:`SequenceRunner`), on the CPU a loop over the same
-stages reads row i.  All three run :func:`frame_stages`, so a sequence
-is bit-equal to as many ``render()`` calls.
+stages reads row i.  All three launch the kernels of
+:func:`frame_stages` on the same values, so a sequence is bit-equal to
+as many ``render()`` calls.
 
 Under a profiler the frame driver opens the spans ``vt.render`` (its
 frame number), ``vt.render.pack`` (the row) and one
-``vt.stage.<stage>`` a stage call, the sequence driver ``vt.sequence``
-(first frame, count) and ``vt.sequence.pack``, ``.rows``, ``.capture``
-(where a graph is captured), ``.state_in``, ``.replay`` and
-``.state_out`` (:func:`voxtracer_torch.utils.timing.span`).  Graph
-captures and replays and the rows' upload add to the counts that
-:func:`counters` snapshots.
+``vt.stage.<stage>`` a stage call, or on the direct path
+``vt.render.launch`` (the arena and the native call) in their place;
+the sequence driver ``vt.sequence`` (first frame, count) and
+``vt.sequence.pack``, ``.rows``, ``.capture`` (where a graph is
+captured), ``.state_in``, ``.replay`` and ``.state_out``
+(:func:`voxtracer_torch.utils.timing.span`).  Graph captures and
+replays, the rows' upload and the direct path's frames add to the
+counts that :func:`counters` snapshots.
 """
 
 from __future__ import annotations
@@ -62,6 +68,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..ops import _build
 from ..ops import denoise as denoise_op
 from ..ops import epilogue as epilogue_op
 from ..ops import reproject as reproject_op
@@ -69,6 +76,7 @@ from ..ops import temporal as temporal_op
 from ..ops import trace as trace_op
 from ..ops.noise import blue_noise_buffer
 from ..utils.timing import COUNTS, span
+from . import direct
 from .camera import Camera
 from .params import (
     DENOISE_PARAMS_LEN,
@@ -465,6 +473,7 @@ class Renderer:
         self.frame_number = 0
         self.still_sample = 0
         self._runner: Optional[SequenceRunner] = None
+        self._plan: Optional[direct.FramePlan] = None
 
     def set_scene(self, scene: GridScene):
         """Swap scenes and restart accumulation."""
@@ -492,29 +501,43 @@ class Renderer:
     def render(
         self, camera: Camera, lean: Optional[bool] = None
     ) -> Dict[str, torch.Tensor]:
+        """The next frame at ``camera``: its outputs (``image``, ``depth``,
+        ``rays``, and unless ``lean`` the planes of :func:`render_frame`)
+        and the new state, in memory that no later frame writes.  On the
+        card with the package's own stages one native call enqueues it
+        (:mod:`.direct`), else the stages run one by one
+        (:func:`render_frame`)."""
         frame = self.frame_number + 1
+        lean = self.lean if lean is None else lean
         with span("vt.render", {"frame": frame}):
             cam = camera.rows(self.width, self.height)
             moved = camera_moved(self.state, cam)
-            self.state, outputs = render_frame(
-                self.state,
-                self.tables,
-                self.noise,
-                cam,
-                self.render_params,
-                self.temporal_params,
-                self.denoise_params,
-                frame,
-                self.height,
-                self.width,
-                radius=self.denoise_radius,
-                lean=self.lean if lean is None else lean,
-                trace=self.trace,
-                temporal=self.temporal,
-                denoise=self.denoise,
-                still_epilogue=self.still_epilogue,
-                encode=self.encode,
-            )
+            plan = self._frame_plan()
+            if plan is not None:
+                self.state, outputs = plan.render(
+                    self.state, cam, self.state["history_valid"] and moved,
+                    frame, self.render_params, self.temporal_params,
+                    self.denoise_params, lean)
+            else:
+                self.state, outputs = render_frame(
+                    self.state,
+                    self.tables,
+                    self.noise,
+                    cam,
+                    self.render_params,
+                    self.temporal_params,
+                    self.denoise_params,
+                    frame,
+                    self.height,
+                    self.width,
+                    radius=self.denoise_radius,
+                    lean=lean,
+                    trace=self.trace,
+                    temporal=self.temporal,
+                    denoise=self.denoise,
+                    still_epilogue=self.still_epilogue,
+                    encode=self.encode,
+                )
         self.frame_number = frame
         self.still_sample = 1 if moved else self.still_sample + 1
         return outputs
@@ -570,17 +593,38 @@ class Renderer:
         return (self.trace, self.temporal, self.denoise, self.still_epilogue,
                 self.encode)
 
-    def _sequence_runner(self) -> SequenceRunner:
-        """The runner of this configuration; a new one, without graphs,
-        once anything that a capture freezes has changed."""
+    def _config_key(self) -> tuple:
+        """What a frame plan and a sequence runner freeze: size, radius,
+        tables, noise, stages and the denoise kernel's by-value
+        parameters."""
         p = self.denoise_params
-        key = (
+        return (
             self.height, self.width, self.denoise_radius, id(self.tables),
             id(self.noise), *self._stages(),
             # by value in the denoise kernel's launch
             (p.sigma_distance, p.sigma_range, p.albedo_factor)
             if self.denoise_radius else None,
         )
+
+    def _frame_plan(self) -> Optional[direct.FramePlan]:
+        """The frame plan of this configuration and kernel library, or
+        None where the direct path does not engage; a new one once either
+        has changed."""
+        if not direct.engages(self.device, self._stages()):
+            return None
+        lib = _build.load()
+        key = (*self._config_key(), lib)
+        if self._plan is None or self._plan.key != key:
+            self._plan = direct.FramePlan(
+                key, lib, self.tables, self.noise, self.height, self.width,
+                self.denoise_radius, self.denoise_params.sigma_distance,
+                counted_kernels())
+        return self._plan
+
+    def _sequence_runner(self) -> SequenceRunner:
+        """The runner of this configuration; a new one, without graphs,
+        once anything that a capture freezes has changed."""
+        key = self._config_key()
         if self._runner is None or self._runner.key != key:
             self._runner = SequenceRunner(
                 key, self.tables, self.noise, self.height, self.width,

@@ -21,8 +21,9 @@ The port adds two instruments of its own layers:
   single check: nothing is built.  The range is the profiler's fast
   one (about a microsecond on the host; ``record_function`` costs ten).
 * :data:`COUNTS` holds monotone counts, always on, one int add a site:
-  the CUDA graphs captured and replayed, the kernel library's loads, and
-  the places the host blocked on the device.  ``engine.pipeline.counters``
+  the CUDA graphs captured and replayed, the kernel library's loads,
+  the places the host blocked on the device, and the frames enqueued by
+  the frame driver's one native call.  ``engine.pipeline.counters``
   snapshots them with the frame kernels' launches.
 """
 
@@ -42,6 +43,7 @@ COUNTS: Dict[str, int] = {
     "graph.replays": 0,  # ``SequenceRunner.run``: frames replayed
     "kernel.builds": 0,  # ``ops/_build.load``: the library built or loaded
     "host.waits": 0,  # the host blocked on the device (fetch, rows)
+    "frames.direct": 0,  # ``engine/direct.py``: a frame by one native call
 }
 
 _OFF = contextlib.nullcontext()
