@@ -21,7 +21,9 @@ capture whatever the cell's frames use), then the window of
 under the profiler follows.  Then the card's power limit is read, the
 program's renderer is freed and the reference checks the warm-up's
 frames (from a fresh state of its own) and the units kept during the
-window.  The last line of standard output is the result.
+window.  The last line of standard output is the result; a run whose
+process holds a module of JAX or of the JAX package (``voxtracer``) at
+its end prints none and exits with an error.
 """
 
 from __future__ import annotations
@@ -121,6 +123,20 @@ class Run:
         the window."""
         t_end = self.record["t_end"]
         return [j for j, t in enumerate(self.record["ready"]) if t <= t_end]
+
+
+# top-level names that no module in a run's process may have: JAX and
+# its libraries, and the JAX package the port was made from
+FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "voxtracer")
+
+
+def forbidden_modules(modules=None) -> List[str]:
+    """The names in ``modules`` (``sys.modules`` by default) whose
+    top-level name, the part before the first dot, is one of
+    ``FORBIDDEN_MODULES``: ``voxtracer_torch`` is not ``voxtracer``."""
+    modules = sys.modules if modules is None else modules
+    return sorted(m for m in list(modules)
+                  if m.split(".")[0] in FORBIDDEN_MODULES)
 
 
 def check_draws(workload: dict, seed: int):
@@ -235,6 +251,14 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
             "idle_gaps": [[n, s] for n, s in run.trace.idle_by_span(10)],
         }
     result["checks"] = checks
+    # once the window has closed and every reader has run, in the process
+    # that prints the result: a run that loaded JAX or the JAX package
+    # gives no result
+    found = forbidden_modules()
+    if found:
+        log(f"refused: modules of JAX or the JAX package loaded: "
+            f"{', '.join(found)}")
+        raise RuntimeError(f"forbidden modules loaded: {', '.join(found)}")
     return result
 
 

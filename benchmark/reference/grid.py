@@ -1,14 +1,10 @@
-"""Dense voxel grid + occupancy mip pyramid — the TPU acceleration structure.
+"""Dense voxel grid and the trace's scene tables.
 
 The reference traverses a pointer-chasing sparse octree on the GPU
-(``shaders/voxels.comp:134-247``).  Pointer chasing is hostile to TPU
-vector units, so the TPU-native equivalent is:
-
-  * a dense int32 value grid over the scene's bounding box (0 = empty,
-    negative = packed leaf value — same encoding, ``src/context.rs:734``),
-  * a pyramid of boolean occupancy mips (level ``l`` cell = ``2**l`` base
-    cells) enabling hierarchical DDA empty-space skipping with identical
-    hit results to the octree traversal.
+(``shaders/voxels.comp:134-247``).  The port instead keeps a dense int32
+value grid over the scene's bounding box (0 = empty, negative = packed
+leaf value — same encoding, ``src/context.rs:734``) and builds from it
+the tables its trace marches, with empty-space distances baked in.
 
 World mapping (must match the octree ABI): ``create_octree`` writes
 ``root_size = 2**depth`` and the traversal descends one level per
@@ -19,15 +15,20 @@ leaf cells of the octree sit one level *below* the integer lattice, so a
 voxel is half a world unit across.  The grid stores that mapping as
 ``world = (index + origin) * CELL_SIZE``.
 
-The benchmark's copy of the port's ``scene/grid.py``, with only the
-numpy paths (bit-identical to its native ones): ``device_tables()`` is
-the trace's table layout, built here from the ``.vox`` file alone.
+The benchmark's copy of the port's ``scene/grid.py``, numpy only:
+``device_tables()`` is the trace's table layout, built here from the
+voxels alone (a ``.vox`` file or the procedural scene), bit-equal to
+the port's tables.  The port's occupancy mips are left out, since the
+benchmark reads none; the distance fields and the node masks are built
+by other means than the port's numpy paths (see
+``_chebyshev_distance``, ``_pack_nodes``), to the same bits, so that a
+scene of some 70 million cells takes seconds.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -76,19 +77,16 @@ def _ceil_multiple(x: int, m: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class GridScene:
-    """Device-friendly scene: dense values plus occupancy mips.
+    """Device-friendly scene: dense values.
 
     Attributes:
       values: int32 [X, Y, Z]; 0 = empty, negative = packed leaf.
       origin: int32 [3] — voxel-lattice coordinate of grid index (0,0,0).
       shape:  padded grid dims (multiples of ``pad``).
-      mips:   occupancy bools, mips[0] is full resolution, each following
-              level halves every axis (shape padded up).
     """
 
     values: np.ndarray
     origin: np.ndarray
-    mips: List[np.ndarray]
 
     @property
     def shape(self) -> Tuple[int, int, int]:
@@ -103,9 +101,7 @@ class GridScene:
         ) * CELL_SIZE
 
     @staticmethod
-    def from_voxels(
-        voxels: VoxelList, pad: int = 8, num_mips: int = 6
-    ) -> "GridScene":
+    def from_voxels(voxels: VoxelList, pad: int = 8) -> "GridScene":
         if len(voxels) == 0:
             values = np.zeros((pad, pad, pad), dtype=np.int32)
             origin = np.zeros(3, dtype=np.int32)
@@ -124,8 +120,7 @@ class GridScene:
             idx = pos - lo
             values[idx[:, 0], idx[:, 1], idx[:, 2]] = leaves
 
-        mips = _build_mips(values != 0, num_mips)
-        return GridScene(values=values, origin=origin, mips=mips)
+        return GridScene(values=values, origin=origin)
 
     def device_tables(self) -> Dict[str, np.ndarray]:
         """Build the Pallas-kernel tables.
@@ -144,34 +139,23 @@ class GridScene:
         x_dim, y_dim, z_dim = self.values.shape
         zw = -(-z_dim // 3)
 
-        dist = _chebyshev_distance(self.values != 0, cap=DIST_CAP)
-        zp = zw * 3
-        vals = self.values
-        dpad = dist.astype(np.int64)
-        if zp != z_dim:
-            zpad = np.zeros((x_dim, y_dim, zp - z_dim), np.int32)
-            vals = np.concatenate([vals, zpad], axis=2)
-            dpad = np.concatenate([dpad, zpad.astype(np.int64)], axis=2)
-        uniq = np.unique(vals)
-        uniq = uniq[uniq != 0]
+        occ = self.values != 0
+        leaves = self.values[occ]
+        uniq = np.unique(leaves)
         assert (
             len(uniq) < PALETTE_CAPACITY - RESERVED_SLOTS
         ), "scene not palettized"
         palette = np.zeros(PALETTE_CAPACITY, np.int32)
         palette[RESERVED_SLOTS : RESERVED_SLOTS + len(uniq)] = uniq
         # occupied -> palette slot via searchsorted over sorted
-        # uniques; empty -> its baked jump distance
-        flat = vals.reshape(-1)
-        slots = dpad.reshape(-1).copy()
-        nz = flat != 0
-        slots[nz] = (
-            np.searchsorted(uniq, flat[nz]) + RESERVED_SLOTS
-        )
+        # uniques; empty -> its baked jump distance; z padded with 0
+        slots = np.zeros((x_dim, y_dim, zw * 3), np.uint32)
+        cells = slots[:, :, :z_dim]
+        cells[...] = _chebyshev_distance(occ, cap=DIST_CAP)
+        cells[occ] = np.searchsorted(uniq, leaves) + RESERVED_SLOTS
 
         idx3 = slots.reshape(x_dim, y_dim, zw, 3)
-        words = (
-            (idx3 << np.array([0, 10, 20], np.int64)).sum(axis=3)
-        ).astype(np.uint32)
+        words = idx3[..., 0] | (idx3[..., 1] << 10) | (idx3[..., 2] << 20)
         flat_words = words.reshape(-1).view(np.int32)
         # minimum 16 rows: the kernel's window serve slices 16 at a time
         # pillar layout: 4x4 (x, y) column blocks with contiguous z —
@@ -201,7 +185,6 @@ class GridScene:
         #     two parallel (rows, 128) tables (lo/hi words, one shared
         #     address), fetched only on entering an occupied block,
         #     then marched entirely in registers.
-        occ = self.values != 0
         sup_occ = _block_occ(occ)
         hx, hy, hz = sup_occ.shape
         px, py = _ceil_multiple(hx, 8), _ceil_multiple(hy, 8)
@@ -286,33 +269,28 @@ def _pack_nodes(
         vals_p[
             : values.shape[0], : values.shape[1], : values.shape[2]
         ] = values
-    bits = (
-        occ_p.reshape(qx_d, 4, qy_d, 4, qz_d, 4)
-        .transpose(0, 2, 4, 1, 3, 5)
-        .reshape(qx_d, qy_d, qz_d, 64)
-        .astype(np.int64)
-    )
-    weights = np.int64(1) << np.arange(32, dtype=np.int64)
-    lo = (bits[..., :32] * weights).sum(axis=-1)
-    hi = (bits[..., 32:] * weights).sum(axis=-1)
 
-    # uniform palette slot per block (0 when mixed / empty)
-    v64 = vals_p.astype(np.int64)
-    vb = (
-        v64.reshape(qx_d, 4, qy_d, 4, qz_d, 4)
-        .transpose(0, 2, 4, 1, 3, 5)
-        .reshape(qx_d, qy_d, qz_d, 64)
-    )
-    occ_b = bits == 1
-    big = np.int64(1) << 62
-    vmin = np.where(occ_b, vb, big).min(axis=-1)
-    vmax = np.where(occ_b, vb, -big).max(axis=-1)
+    def blocks(a):
+        return a.reshape(qx_d, 4, qy_d, 4, qz_d, 4).transpose(
+            0, 2, 4, 1, 3, 5).reshape(qx_d, qy_d, qz_d, 64)
+
+    # bit (x&3)*16 + (y&3)*4 + (z&3) of a block's 64-bit mask
+    key64 = np.packbits(blocks(occ_p), axis=-1, bitorder="little").view(
+        "<u8")[..., 0]
+
+    # uniform palette slot per block (0 when mixed / empty).  Occupied
+    # values are negative and empty ones 0, so a block's least value is
+    # its least occupied one, and its greatest as unsigned words its
+    # greatest occupied one.
+    vb = blocks(vals_p)
+    vmin = vb.min(axis=-1)
+    vmax = vb.view(np.uint32).max(axis=-1).view(np.int32)
     uniform = l3_occ & (vmin == vmax)
     # value -> palette slot (leaf values are distinct in the palette)
     pal = palette.reshape(-1).astype(np.int64)
     order = np.argsort(pal, kind="stable")
     pal_sorted = pal[order]
-    uval = np.where(uniform, vmin, np.int64(0))
+    uval = np.where(uniform, vmin.astype(np.int64), np.int64(0))
     pos = np.searchsorted(pal_sorted, uval)
     pos = np.clip(pos, 0, len(pal) - 1)
     slot = np.where(
@@ -320,18 +298,17 @@ def _pack_nodes(
     ).astype(np.int64)
 
     # content-addressed dedup over (64-bit mask, uniform slot) pairs —
-    # see BRICK_DEDUP_MAX.  Empty nodes map to entry (0, 0); they never
-    # consult the brick table.
-    # combine in uint64: with mask bit 63 set, (lo | hi<<32) in int64
-    # would rely on silent two's-complement wraparound (bijective but
-    # fragile under future NumPy overflow strictness)
-    key64 = lo.astype(np.uint64) | (hi.astype(np.uint64) << np.uint64(32))
-    keys = np.stack(
-        [key64.reshape(-1), slot.reshape(-1).astype(np.uint64)], axis=1
-    )
+    # see BRICK_DEDUP_MAX.  Empty nodes map to entry (0, 0), first in
+    # the sorted pairs as no occupied mask is 0; they never consult the
+    # brick table.
+    keys = np.stack([key64[l3_occ], slot[l3_occ].astype(np.uint64)], axis=1)
     uniq_keys, inv = np.unique(keys, axis=0, return_inverse=True)
+    if not l3_occ.all():
+        uniq_keys = np.concatenate([np.zeros((1, 2), np.uint64), uniq_keys])
+        inv = inv + 1
     if len(uniq_keys) <= BRICK_DEDUP_MAX:
-        bidx = inv.reshape(qx_d, qy_d, qz_d).astype(np.int64)
+        bidx = np.zeros((qx_d, qy_d, qz_d), np.int64)
+        bidx[l3_occ] = inv.reshape(-1)
         meta16 = np.where(
             l3_occ, np.int64(0x8000) | bidx, l3_d.astype(np.int64)
         )
@@ -351,8 +328,9 @@ def _pack_nodes(
         # uniform slot in the meta word
         brick_idx = np.stack(
             [
-                _pillar_pack(lo[..., None].astype(np.uint32), 1),
-                _pillar_pack(hi[..., None].astype(np.uint32), 1),
+                _pillar_pack(key64[..., None].astype(np.uint32), 1),
+                _pillar_pack((key64 >> np.uint64(32))[..., None].astype(
+                    np.uint32), 1),
             ],
             axis=0,
         )
@@ -397,50 +375,39 @@ def _quantize_leaves(leaves: np.ndarray) -> np.ndarray:
 
 def _chebyshev_distance(occ: np.ndarray, cap: int) -> np.ndarray:
     """Chebyshev (max-norm) distance to the nearest occupied block,
-    capped at ``cap``; 0 where occupied.
+    capped at ``cap``; 0 where occupied.  Out of the grid is empty.
 
-    Chamfer iteration with a separable 3-wide min filter: ``k`` rounds
-    make every distance <= k exact, and clamping the rest to ``cap`` is
-    conservative (a shorter jump is always safe).
+    Six sweeps, each along one axis one way, slice by slice: a cell
+    takes the least of its own distance and one more than the least
+    over the 3x3 cells of the slice before it.  The nearest occupied
+    cell lies in the pyramid about one axis and way (where that axis's
+    offset is the largest), and that sweep reaches the cell from it in
+    exactly max-norm steps; every value is the length of a path of
+    max-norm steps, never less than the distance.  So the result is
+    exact.
     """
-    big = np.uint16(cap + 1)
-    d = np.where(occ, np.uint16(0), big)
-    for _ in range(cap):
-        m = d
-        for axis in range(3):
-            lo = np.roll(m, 1, axis=axis)
-            hi = np.roll(m, -1, axis=axis)
-            # roll wraps; the wrapped slice is re-set to the edge value
-            # (out-of-grid is "empty at infinity", never a tighter min)
-            idx_lo = [slice(None)] * 3
-            idx_lo[axis] = slice(0, 1)
-            lo[tuple(idx_lo)] = big
-            idx_hi = [slice(None)] * 3
-            idx_hi[axis] = slice(-1, None)
-            hi[tuple(idx_hi)] = big
-            m = np.minimum(m, np.minimum(lo, hi))
-        nd = np.minimum(d, m + 1)
-        if np.array_equal(nd, d):
-            break
-        d = nd
-    return np.minimum(d, np.uint16(cap)).astype(np.uint8)
+    big = cap + 1
+    dtype = np.uint8 if big < 255 else np.uint16
+    d = np.where(occ, 0, big).astype(dtype)
+    for axis in range(3):
+        s = np.ascontiguousarray(np.moveaxis(d, axis, 0))
+        for order in (range(1, len(s)), range(len(s) - 2, -1, -1)):
+            step = 1 if order.step > 0 else -1
+            for i in order:
+                near = _min3x3(s[i - step])
+                near += 1
+                np.minimum(s[i], near, out=s[i])
+        d = np.moveaxis(s, 0, axis)
+    return np.ascontiguousarray(np.minimum(d, cap), dtype=np.uint8)
 
 
-def _build_mips(occ0: np.ndarray, num_mips: int) -> List[np.ndarray]:
-    mips = [occ0]
-    cur = occ0
-    for _ in range(1, num_mips):
-        if max(cur.shape) <= 1:
-            break
-        dims = [_ceil_multiple(s, 2) for s in cur.shape]
-        if dims != list(cur.shape):
-            padded = np.zeros(dims, dtype=bool)
-            padded[: cur.shape[0], : cur.shape[1], : cur.shape[2]] = cur
-            cur = padded
-        cur = (
-            cur.reshape(
-                dims[0] // 2, 2, dims[1] // 2, 2, dims[2] // 2, 2
-            ).any(axis=(1, 3, 5))
-        )
-        mips.append(cur)
-    return mips
+def _min3x3(plane: np.ndarray) -> np.ndarray:
+    """The least over each cell's 3x3 neighbourhood of a 2-D plane
+    (cells beyond the edge left out)."""
+    rows = plane.copy()
+    np.minimum(rows[1:], plane[:-1], out=rows[1:])
+    np.minimum(rows[:-1], plane[1:], out=rows[:-1])
+    out = rows.copy()
+    np.minimum(out[:, 1:], rows[:, :-1], out=out[:, 1:])
+    np.minimum(out[:, :-1], rows[:, 1:], out=out[:, :-1])
+    return out

@@ -1,5 +1,6 @@
-"""The scene tables of the reference, built from the ``.vox`` asset
-alone (:mod:`benchmark.reference.grid`) and held on the device."""
+"""The scene tables of the reference, built from the ``.vox`` asset or
+the procedural scene alone (:mod:`benchmark.reference.grid`) and held on
+the device."""
 
 from __future__ import annotations
 
@@ -8,7 +9,7 @@ import os
 import numpy as np
 import torch
 
-from . import grid, vox, voxels
+from . import grid, procedural, vox, voxels
 
 ASSET_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -19,10 +20,17 @@ def asset_path(name: str) -> str:
     return os.path.join(ASSET_DIR, name + ".vox")
 
 
+def load_voxels(name: str) -> voxels.VoxelList:
+    """The voxels of ``assets/vox/<name>.vox``, or of the procedural
+    scene for ``"default"``, as the port names its scenes."""
+    if name == "default":
+        return procedural.default_scene()
+    return voxels.voxels_from_vox(vox.load(asset_path(name)))
+
+
 def load_grid(name: str) -> grid.GridScene:
-    """The dense grid of ``assets/vox/<name>.vox``."""
-    return grid.GridScene.from_voxels(
-        voxels.voxels_from_vox(vox.load(asset_path(name))))
+    """The dense grid of the scene ``name`` (:func:`load_voxels`)."""
+    return grid.GridScene.from_voxels(load_voxels(name))
 
 
 def world_bounds(name: str):
