@@ -131,7 +131,8 @@ def build_parser() -> argparse.ArgumentParser:
     io_g.add_argument("--stats", action="store_true",
                       help="print per-stage timing and the run's counters "
                            "(launches a frame, graph captures and "
-                           "replays, kernel builds, host waits) at the end")
+                           "replays, kernel builds, host waits, the scene "
+                           "build) at the end")
     io_g.add_argument("--profile", default=None, metavar="DIR",
                       help="capture a torch.profiler trace of the render "
                            "loop into DIR (trace.json, chrome format)")
@@ -209,6 +210,8 @@ def main(argv=None) -> int:
     _check_args(args)
 
     width, height = (int(v) for v in args.size.lower().split("x"))
+    # --stats prints the counters' growth from here: the scene build too
+    counts = counters()
     try:
         scene = load_scene(args.scene)
     except ValueError as e:
@@ -278,7 +281,6 @@ def main(argv=None) -> int:
     camera = fixed_cam
     # Stages are closed by a device synchronise only under --stats: a
     # wait per frame would keep the host from running ahead of the card.
-    counts = counters()
     with _profiled(args.profile, renderer.device):
         t_start = time.perf_counter()
         batched = 0

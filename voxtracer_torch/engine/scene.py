@@ -11,12 +11,20 @@ memory as they are (menger's about 1 MB; the scale probe's 480^3 shell,
 tables with int32 arithmetic, so :class:`SceneTables` refuses a scene
 whose tables it would address past 2^31 (:func:`check_table_addressing`)
 rather than let the index wrap.
+
+The build is set-up work, and it is traced as the frames are
+(``utils.timing``): spans ``vt.scene.voxels`` and ``vt.scene.grid``
+(:func:`load_scene`), ``vt.scene.tables`` with ``vt.scene.distance``
+and ``vt.scene.nodes`` inside it (``device_tables()``) and
+``vt.scene.upload``, and the ``scene.*`` counts of its host
+microseconds, bytes and brick layout.
 """
 
 from __future__ import annotations
 
 import glob
 import os
+import time
 
 import numpy as np
 import torch
@@ -29,6 +37,7 @@ from ..scene import (  # noqa: F401  (re-exported scene types)
     default_scene,
     voxels_from_vox,
 )
+from ..utils.timing import COUNTS, span
 
 ASSET_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -47,7 +56,13 @@ def available_scenes():
 def load_scene(name: str) -> GridScene:
     """A scene by asset name (``assets/vox/<name>.vox``), by .vox path,
     or ``"default"`` for the procedural scene."""
-    return GridScene.from_voxels(load_voxels(name))
+    t0 = time.perf_counter_ns()
+    with span("vt.scene.voxels"):
+        voxels = load_voxels(name)
+    with span("vt.scene.grid"):
+        scene = GridScene.from_voxels(voxels)
+    COUNTS["scene.load_us"] += (time.perf_counter_ns() - t0) // 1000
+    return scene
 
 
 def load_voxels(name: str) -> VoxelList:
@@ -115,16 +130,23 @@ class SceneTables(nn.Module):
 
     def __init__(self, scene: GridScene, device):
         super().__init__()
-        t = scene.device_tables()
+        device = torch.device(device)
+        t0 = time.perf_counter_ns()
+        with span("vt.scene.tables"):
+            t = scene.device_tables()
+        t1 = time.perf_counter_ns()
         check_table_addressing(
             scene.values.shape, t["zw"], t["l3_dims"],
             {name: t[name].size for name in TABLES},
             int(t["brick_idx"].shape[0]) == 3)
-        for name in TABLES:
-            arr = np.ascontiguousarray(t[name], dtype=np.int32)
-            self.register_buffer(
-                name, torch.from_numpy(arr).to(torch.device(device))
-            )
+        t2 = time.perf_counter_ns()
+        with span("vt.scene.upload"):
+            for name in TABLES:
+                arr = np.ascontiguousarray(t[name], dtype=np.int32)
+                self.register_buffer(name, torch.from_numpy(arr).to(device))
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+        t3 = time.perf_counter_ns()
         self.dims = tuple(int(d) for d in scene.values.shape)
         self.origin = tuple(int(v) for v in scene.origin)
         self.zw = int(t["zw"])
@@ -132,6 +154,12 @@ class SceneTables(nn.Module):
         self.brick_dedup = int(t["brick_idx"].shape[0]) == 3
         if self.palette.numel() != 1024:
             raise ValueError("palette must hold 1024 slots")
+        COUNTS["scene.builds"] += 1
+        COUNTS["scene.tables_us"] += (t1 - t0) // 1000
+        COUNTS["scene.upload_us"] += (t3 - t2) // 1000
+        COUNTS["scene.table_bytes"] += sum(
+            getattr(self, name).nbytes for name in TABLES)
+        COUNTS["scene.per_node"] += int(not self.brick_dedup)
 
     @property
     def device(self) -> torch.device:

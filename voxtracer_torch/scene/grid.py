@@ -21,7 +21,9 @@ voxel is half a world unit across.  The grid stores that mapping as
 
 The port's copy of ``voxtracer/scene/grid.py``: ``device_tables()``
 is the CUDA trace kernel's table ABI, bit-equal to the JAX package's in
-both brick layouts (``tests/test_torch_hostlayer.py``).
+both brick layouts (``tests/test_torch_hostlayer.py``).  Its distance
+fields and node tables are the spans ``vt.scene.distance`` and
+``vt.scene.nodes`` (``utils.timing.span``).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
+from ..utils.timing import span
 from .voxels import VoxelList, pack_leaves
 
 CELL_SIZE = 0.5  # world size of one voxel
@@ -151,9 +154,10 @@ class GridScene:
         x_dim, y_dim, z_dim = self.values.shape
         zw = -(-z_dim // 3)
 
-        dist = native.block_dist(self.values, 0, DIST_CAP)
-        if dist is None:
-            dist = _chebyshev_distance(self.values != 0, cap=DIST_CAP)
+        with span("vt.scene.distance"):
+            dist = native.block_dist(self.values, 0, DIST_CAP)
+            if dist is None:
+                dist = _chebyshev_distance(self.values != 0, cap=DIST_CAP)
 
         packed = native.pack_words(
             self.values, dist, PALETTE_CAPACITY, RESERVED_SLOTS
@@ -226,17 +230,19 @@ class GridScene:
             grown[:hx, :hy, :] = sup_occ
             sup_occ = grown
         l3_occ = _block_occ(sup_occ)
-        l3_d = native.block_dist(self.values, 2, L3_DIST_CAP)
-        if l3_d is None:
-            l3_d = _chebyshev_distance(l3_occ, cap=L3_DIST_CAP)
+        with span("vt.scene.distance"):
+            l3_d = native.block_dist(self.values, 2, L3_DIST_CAP)
+            if l3_d is None:
+                l3_d = _chebyshev_distance(l3_occ, cap=L3_DIST_CAP)
         if l3_d.shape != l3_occ.shape:  # native follows unpadded dims
             grown = np.zeros(l3_occ.shape, l3_d.dtype)
             grown[: l3_d.shape[0], : l3_d.shape[1], : l3_d.shape[2]] = l3_d
             l3_d = grown
         l3_dims = l3_occ.shape
-        meta_idx, brick_idx = _pack_nodes(
-            self.values, occ, l3_occ, l3_d, l3_dims, palette
-        )
+        with span("vt.scene.nodes"):
+            meta_idx, brick_idx = _pack_nodes(
+                self.values, occ, l3_occ, l3_d, l3_dims, palette
+            )
 
         return {
             "packed_idx": padded.reshape(n_rows, 128),

@@ -22,8 +22,9 @@ The port adds two instruments of its own layers:
   one (about a microsecond on the host; ``record_function`` costs ten).
 * :data:`COUNTS` holds monotone counts, always on, one int add a site:
   the CUDA graphs captured and replayed, the kernel library's loads,
-  the places the host blocked on the device, and the frames enqueued by
-  the frame driver's one native call.  ``engine.pipeline.counters``
+  the places the host blocked on the device, the frames enqueued by
+  the frame driver's one native call, and the scene builds with their
+  host microseconds and table bytes.  ``engine.pipeline.counters``
   snapshots them with the frame kernels' launches.
 """
 
@@ -44,6 +45,13 @@ COUNTS: Dict[str, int] = {
     "kernel.builds": 0,  # ``ops/_build.load``: the library built or loaded
     "host.waits": 0,  # the host blocked on the device (fetch, rows)
     "frames.direct": 0,  # ``engine/direct.py``: a frame by one native call
+    # ``engine/scene.py``: the scene build (set-up only)
+    "scene.builds": 0,  # a ``SceneTables``
+    "scene.load_us": 0,  # ``load_scene``: voxels and grid, host us
+    "scene.tables_us": 0,  # ``GridScene.device_tables()``, host us
+    "scene.upload_us": 0,  # the tables' copies to the device, host us
+    "scene.table_bytes": 0,  # the four tables' bytes
+    "scene.per_node": 0,  # builds whose ``brick_idx`` has 2 planes
 }
 
 _OFF = contextlib.nullcontext()
