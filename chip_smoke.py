@@ -199,7 +199,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
     --noconftest -m cuda tests/test_torch_tracing.py``: the sequence
     driver's spans, a graph captured only on first use,
     ``graph.replays`` the frames replayed, a host wait a push and a
-    ``load_rows``); the off path's cost a span on this host (the best of
+    ``load_rows``; and ``tests/test_torch_fetch_stream.py``: the
+    lookahead fetch's frames, copied on its own stream, bit-equal to
+    blocking copies, through a drop and a resize, and the copy's event
+    on that stream); the off path's cost a span on this host (the best of
     5 loops of 200,000 no-op spans) times the 8 sites a frame opens at
     most (``vt.render``, its pack, 4 stages, the fetch's copy and wait),
     the on path's a span under the profiler; and the device side of a
@@ -2603,7 +2606,8 @@ def phase_tracing(smi):
     # host need not have
     tests = subprocess.run(
         [sys.executable, "-m", "pytest", "-q", "--noconftest", "-m", "cuda",
-         "-p", "no:cacheprovider", "tests/test_torch_tracing.py"],
+         "-p", "no:cacheprovider", "tests/test_torch_tracing.py",
+         "tests/test_torch_fetch_stream.py"],
         capture_output=True, text=True, cwd=HERE)
     summary = tests.stdout.strip().splitlines()[-1:]
     assert tests.returncode == 0, tests.stdout[-4000:] + tests.stderr[-2000:]

@@ -9,10 +9,19 @@ such call, so :class:`LookaheadFetch` does it by hand:
 
 * two pinned host buffer sets (image and ray counters), used in turn: a
   copy into pageable memory with ``non_blocking=True`` is synchronous;
-* ``copy_(..., non_blocking=True)`` of the frame's u8 image (made
-  contiguous on the card first: ``out["image"]`` is a view of planar
-  data) and of its ray counters, then a CUDA event recorded behind the
-  copies;
+* the frame's u8 image made contiguous on the compute stream (the
+  encode writes it so already: no copy), then an event recorded there
+  behind the frame's last kernel;
+* ``copy_(..., non_blocking=True)`` of the image and of the ray
+  counters on a copy stream of the fetch's own, made once for the
+  image's device, which first waits for that event, and a CUDA event
+  recorded behind the copies on the same stream.  The copy runs on the
+  PCIe link and needs no SM: off the compute stream it overlaps the next
+  frame's kernels instead of holding them back;
+* ``record_stream`` on the copied tensors, so that the caching allocator
+  hands their memory (the direct path's arena of the frame) to the
+  compute stream again only once the copy stream has read it, also
+  where a frame in flight is forgotten (:meth:`drop`, a resize);
 * the previous frame's event is waited for before the host reads its
   buffers, which it may then do until the next :meth:`push`: a buffer
   read before its copy completed would hold a torn frame.
@@ -43,6 +52,8 @@ class LookaheadFetch:
         self._slots: list = [None, None]  # (image, rays, event) in turn
         self._turn = 0
         self._pending: Optional[Tuple] = None
+        self._stream: Optional[torch.cuda.Stream] = None  # the copies'
+        self._ready: Optional[torch.cuda.Event] = None  # behind a frame
 
     def push(self, out: Dict[str, torch.Tensor]
              ) -> Optional[Tuple[np.ndarray, int]]:
@@ -65,7 +76,23 @@ class LookaheadFetch:
         """Forget the frame in flight (its size is gone after a resize)."""
         self._pending = None
 
+    def _copy_stream(self, device: torch.device) -> torch.cuda.Stream:
+        """The copy stream on ``device``, made at its first frame; the
+        slots' events belong to the stream's device, so a new device
+        gets new slots too."""
+        if self._stream is None or self._stream.device != device:
+            self._stream = torch.cuda.Stream(device)
+            self._ready = torch.cuda.Event()
+            self._slots = [None, None]
+        return self._stream
+
     def _copy(self, image: torch.Tensor, rays: torch.Tensor):
+        COUNTS["fetch.copies"] += 1
+        stream = self._copy_stream(image.device)
+        image = image.contiguous()
+        compute = torch.cuda.current_stream(image.device)
+        self._ready.record(compute)
+        stream.wait_event(self._ready)
         slot = self._slots[self._turn]
         if slot is None or slot[0].shape != image.shape:
             slot = (torch.empty(image.shape, dtype=image.dtype,
@@ -75,9 +102,21 @@ class LookaheadFetch:
                     torch.cuda.Event())
             self._slots[self._turn] = slot
         host_image, host_rays, event = slot
-        host_image.copy_(image.contiguous(), non_blocking=True)
-        host_rays.copy_(rays, non_blocking=True)
-        event.record(torch.cuda.current_stream(image.device))
+        # set_stream, not the ``torch.cuda.stream`` context: a viewer
+        # frame's host time counts, and the context costs about 15 us
+        # more a call (18 against 3 on an H100's host, torch 2.11)
+        torch.cuda.set_stream(stream)
+        try:
+            host_image.copy_(image, non_blocking=True)
+            host_rays.copy_(rays, non_blocking=True)
+            event.record(stream)
+            if (torch._C._cuda_getCurrentRawStream(image.device.index)
+                    == stream.cuda_stream):
+                COUNTS["fetch.stream_copies"] += 1
+        finally:
+            torch.cuda.set_stream(compute)
+        image.record_stream(stream)
+        rays.record_stream(stream)
         self._turn ^= 1
         return slot
 

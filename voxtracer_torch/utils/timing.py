@@ -23,8 +23,9 @@ The port adds two instruments of its own layers:
 * :data:`COUNTS` holds monotone counts, always on, one int add a site:
   the CUDA graphs captured and replayed, the kernel library's loads,
   the places the host blocked on the device, the frames enqueued by
-  the frame driver's one native call, and the scene builds with their
-  host microseconds and table bytes.  ``engine.pipeline.counters``
+  the frame driver's one native call, the lookahead fetch's host copies
+  and those of them on its own copy stream, and the scene builds with
+  their host microseconds and table bytes.  ``engine.pipeline.counters``
   snapshots them with the frame kernels' launches.
 """
 
@@ -45,6 +46,9 @@ COUNTS: Dict[str, int] = {
     "kernel.builds": 0,  # ``ops/_build.load``: the library built or loaded
     "host.waits": 0,  # the host blocked on the device (fetch, rows)
     "frames.direct": 0,  # ``engine/direct.py``: a frame by one native call
+    # ``utils/fetch.py`` ``LookaheadFetch.push`` of a frame on a card:
+    "fetch.copies": 0,  # a host copy started
+    "fetch.stream_copies": 0,  # one enqueued on the fetch's copy stream
     # ``engine/scene.py``: the scene build (set-up only)
     "scene.builds": 0,  # a ``SceneTables``
     "scene.load_us": 0,  # ``load_scene``: voxels and grid, host us
