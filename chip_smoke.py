@@ -213,10 +213,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
 26. the frame driver's direct path (``engine/direct.py``,
     ``csrc/frame.cu``): ``app/renderbench.py`` ``direct_against_eager``
     renders a seeded 64-frame orbit with holds and moves through the
-    direct path and through the eager stages at menger 1280x720 r=0 and
+    direct path and through the eager stages (``renderbench.eager_render``,
+    a ``render_frame`` loop) at menger 1280x720 r=0 and
     monu9 1920x1080 r=2: every output and state plane bit-equal, the
     same kernels launched, ``frames.direct`` 64 on the direct path
-    alone; then the host's us a lean ``render()`` of each path and the
+    alone; then the host's us a lean frame call of each path and the
     device's ms a frame, 4 turns each, in turns.
 
 Then (phase 15) checks that no module of the JAX package
@@ -269,6 +270,7 @@ sys.path.insert(0, HERE)
 from voxtracer_torch.app import denoisebench, tracebench  # noqa: E402
 from voxtracer_torch.app.denoisebench import FP32_FLOPS_PER_S  # noqa: E402
 from voxtracer_torch.app.renderbench import (  # noqa: E402
+    eager_render,
     encode_case,
     epilogue_cases,
     still_case,
@@ -597,10 +599,9 @@ def phase_main(smi):
              for key, v in r.state.items()}
     n0 = r.frame_number
     images = []
-    r.trace = trace.render_sample_plain
-    plain_frame_ms = cuda_time(lambda: images.append(r.render(cam)["image"]),
-                               2)
-    r.trace = trace.render_sample
+    plain_frame_ms = cuda_time(
+        lambda: images.append(eager_render(
+            r, cam, trace=trace.render_sample_plain)["image"]), 2)
     r.state, r.frame_number = state, n0
     for _ in range(2):
         img_kernel = r.render(cam)["image"]
@@ -1199,21 +1200,16 @@ def drive_path(phase, label, scene_name, w, h, path_name, radius, warmup,
              for key, v in r.state.items()}
     n0 = r.frame_number
     poses = [path((n + i) / 30.0) for i in range(2)]
-    r.trace = trace.render_sample_plain
-    r.temporal = temporal.temporal_blend_reproject_plain
+    plain = dict(trace=trace.render_sample_plain,
+                 temporal=temporal.temporal_blend_reproject_plain,
+                 still_epilogue=epilogue.still_epilogue_plain,
+                 encode=epilogue.encode_plain)
     if radius:
-        r.denoise = denoise.denoise_plain
-    r.still_epilogue = epilogue.still_epilogue_plain
-    r.encode = epilogue.encode_plain
+        plain["denoise"] = denoise.denoise_plain
     plain_images = []
     plain_ms = cuda_time(
-        lambda: plain_images.append(r.render(poses[len(plain_images)])
-                                    ["image"]), 2)
-    r.trace = trace.render_sample
-    r.temporal = temporal.temporal_blend_reproject
-    r.denoise = denoise.denoise
-    r.still_epilogue = epilogue.still_epilogue
-    r.encode = epilogue.encode
+        lambda: plain_images.append(eager_render(
+            r, poses[len(plain_images)], **plain)["image"]), 2)
     r.state, r.frame_number = state, n0
     for cam in poses:
         img_kernel = r.render(cam)["image"]
@@ -1728,7 +1724,7 @@ def phase_harness(smi):
 
 
 def phase_interactive(smi):
-    """Phase 16: the web viewer's frames against a plain render() loop,
+    """Phase 16: the web viewer's frames against an eager frame loop,
     a served stream read by a client, and the ibench rows.  Returns the
     seven kernels' launches per frame of the viewer loop."""
     from voxtracer_torch.app import camera_paths, ibench, web
@@ -1743,13 +1739,13 @@ def phase_interactive(smi):
         return Renderer(scene=scenes["chr_knight"], height=h, width=w,
                         device="cuda", denoise_radius=radius, lean=True)
 
-    # (a) scripted events through render_once == a plain render() loop,
+    # (a) scripted events through render_once == a loop of eager frames,
     # whose stages hold each kernel against its plain version on the
     # frame's own inputs
     viewer = web.WebViewer(renderer(), scenes=sorted(scenes))
     viewer.ctl.frame(camera_paths.static(scenes["chr_knight"])(0.0))
     plain = renderer()
-    held = hold_stages(plain)
+    stages, held = hold_stages()
     published = []
     publish = viewer._publish
 
@@ -1801,7 +1797,7 @@ def phase_interactive(smi):
                                                       r.temporal_params)
         plain.denoise_params = r.denoise_params
         plain.denoise_radius = r.denoise_radius
-        out = plain.render(viewer.ctl.camera)
+        out = eager_render(plain, viewer.ctl.camera, **stages)
         img, rays = published[-1]
         want = out["image"].cpu().numpy()
         assert img.shape == want.shape and np.array_equal(img, want), (
@@ -1812,7 +1808,7 @@ def phase_interactive(smi):
     say(16, f"render_once through {len(script)} scripted frames "
             f"({', '.join(sorted(kinds))}; sizes {sizes}): every published "
             f"u8 frame and "
-            f"its ray count == a plain Renderer.render() loop over the same "
+            f"its ray count == an eager frame loop over the same "
             f"cameras and parameters; that loop's kernels against their "
             f"plain versions on its inputs: "
             + ", ".join(f"{k} {v['frames']} frames, max err {v['err']:g}"
@@ -1917,12 +1913,12 @@ def phase_interactive(smi):
     return per_frame, {k: v["err"] for k, v in held.items()}
 
 
-def hold_stages(r):
-    """Make renderer ``r``'s stages launch each frame kernel and hold it
-    against its plain version on the same inputs, with the bars of
-    phases 3, 5, 6 and 19 and ``drive_path``.  The stages still return the
-    kernel's result.  Returns the frames held and the largest error of
-    each kernel, filled in as ``r`` renders."""
+def hold_stages():
+    """Frame stages (``render_frame``'s keywords) that launch each frame
+    kernel and hold it against its plain version on the same inputs,
+    with the bars of phases 3, 5, 6 and 19 and ``drive_path``.  The
+    stages return the kernel's result.  Returns them, and the frames held
+    and the largest error of each kernel, filled in as they run."""
     from voxtracer_torch.ops import denoise, epilogue, temporal, trace
 
     held = {k: {"frames": 0, "err": 0.0}
@@ -1980,9 +1976,9 @@ def hold_stages(r):
         return held_outputs("encode", epilogue.encode_cuda(*args),
                             epilogue.encode_plain(*args))
 
-    r.trace, r.temporal, r.denoise = trace_stage, temporal_stage, denoise_stage
-    r.still_epilogue, r.encode = still_stage, encode_stage
-    return held
+    return dict(trace=trace_stage, temporal=temporal_stage,
+                denoise=denoise_stage, still_epilogue=still_stage,
+                encode=encode_stage), held
 
 
 def phase_reload(smi):
@@ -2039,7 +2035,8 @@ def phase_reload(smi):
         assert watcher.poll()
         rebuild_s = time.perf_counter() - t0
         second = _build.load()._name
-        assert second != first and r._runner is None, (first, second)
+        assert second != first and r._runner is None and r._plan is None, (
+            first, second)
         loop, seq = frames(r)
         assert np.array_equal(loop, base_loop) and np.array_equal(seq, base_seq)
 
@@ -2057,7 +2054,8 @@ def phase_reload(smi):
     assert _build.load()._name == first
     say(17, f"hot-reload from a copy of csrc/: comment appended to "
             f"reproject.cu -> rebuilt in {rebuild_s:.2f} s, new library "
-            f"{os.path.basename(second)}, sequence graphs dropped, loop and "
+            f"{os.path.basename(second)}, frame plan and sequence graphs "
+            f"dropped, loop and "
             f"replayed frames == those of {os.path.basename(first)}; broken "
             f"trace.cu -> poll() False in {failed_s:.2f} s, the last good "
             f"library still loaded, next frames equal again [{smi}]")

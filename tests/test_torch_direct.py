@@ -2,9 +2,9 @@
 ``csrc/frame.cu``): on the CPU with a stand-in for the kernel library
 that records each native call, the frame plan launches the stages
 ``frame_stages`` runs, by the same rows, counts them as the eager path
-would, gives every frame new memory, is rebuilt where its configuration
-changes, and leaves the CPU and swapped stages to the eager path.  The
-test marked ``cuda`` holds the two paths bit-equal on the card
+would, gives every frame new memory and is rebuilt where its
+configuration changes; it engages by the device alone.  The test marked
+``cuda`` holds it bit-equal to the eager stages on the card
 (``python -m pytest --noconftest -m cuda tests/test_torch_direct.py``;
 chip_smoke phase 26 runs the same comparison)."""
 
@@ -17,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from voxtracer_torch.engine import direct, params, pipeline
+from voxtracer_torch.app.renderbench import eager_render
+from voxtracer_torch.engine import direct, params, pipeline, reload
 from voxtracer_torch.engine.camera import Camera
 from voxtracer_torch.engine.pipeline import Renderer, counters
 from voxtracer_torch.engine.scene import load_scene
@@ -33,14 +34,14 @@ POSE_B = Camera(position=np.array([2.3, 3.0, -4.0]),
                 direction=np.array([0.1, 0.1, 1.0]))
 # the first frame, a still one, a reprojecting one, a still one
 POSES = (POSE_A, POSE_A, POSE_B, POSE_B)
-ORDER = ("trace", "still_epilogue", "temporal", "denoise", "encode")
 FRAME_CU = os.path.join(_build.CSRC_DIR, "frame.cu")
 
 
 class FakeLibrary:
     """Stands in for the kernel library: each ``vt_frame_launch`` is
-    recorded with the kernels it names, the row the plan holds then and
-    its arena, which it fills with the call's number."""
+    recorded with its ``reproject`` flag, the kernels that flag and the
+    plan's radius give, the row the plan holds then and its arena, which
+    it fills with the call's number."""
 
     def __init__(self):
         self.calls = []
@@ -49,7 +50,7 @@ class FakeLibrary:
         return len(direct.SLOTS)
 
     def vt_frame_launch(self, plan, arena, old_color, old_blend, old_depth,
-                        stages, keep_linear, stream):
+                        reproject, keep_linear, stream):
         block = np.ctypeslib.as_array(
             (ctypes.c_int64 * len(direct.SLOTS)).from_address(plan))
         slot = dict(zip(direct.SLOTS, block.tolist()))
@@ -60,7 +61,9 @@ class FakeLibrary:
             if keep_linear or slot["radius"] else 0)
         ctypes.memset(arena, len(self.calls) + 1, size)
         self.calls.append({
-            "stages": [s for s in ORDER if stages & direct.STAGE_BITS[s]],
+            "reproject": reproject,
+            "stages": list(direct.frame_launches(bool(reproject),
+                                                 slot["radius"])),
             "row": row.copy(), "arena": arena, "keep_linear": keep_linear,
             "history": (old_color, old_blend, old_depth)})
         return 0
@@ -71,15 +74,14 @@ def fake(monkeypatch):
     """The direct path on CPU tensors, by the stand-in library."""
     lib = FakeLibrary()
     monkeypatch.setattr(_build, "load", lambda: lib)
-    monkeypatch.setattr(direct, "engages", lambda device, stages:
-                        tuple(stages) == direct.dispatchers())
+    monkeypatch.setattr(direct, "engages", lambda device: True)
     monkeypatch.setattr(direct, "_stream", lambda index: 0)
     return lib
 
 
-def _renderer(radius=0, **kw):
+def _renderer(radius=0):
     return Renderer(scene=load_scene("8x8x8"), height=12, width=16,
-                    device="cpu", denoise_radius=radius, lean=True, **kw)
+                    device="cpu", denoise_radius=radius, lean=True)
 
 
 def _recording_stages(log):
@@ -113,19 +115,22 @@ def _recording_stages(log):
 @pytest.mark.parametrize("radius", [0, 2])
 def test_plan_launches_frame_stages_by_the_same_rows(fake, radius):
     """First frame, still, reprojecting and still again: the native
-    call names the kernels ``frame_stages`` runs with recording stages,
-    in order, and the plan's row holds each stage's slice, bit for
-    bit; the wrappers' launches and ``frames.direct`` grow by them."""
+    call's flag gives the kernels ``frame_stages`` runs with recording
+    stages, in order, and the plan's row holds each stage's slice, bit
+    for bit; the wrappers' launches and ``frames.direct`` grow by
+    them."""
     log = []
-    eager = _renderer(radius, **_recording_stages(log))
+    stages = _recording_stages(log)
+    eager = _renderer(radius)
     fast = _renderer(radius)
     for i, pose in enumerate(POSES):
         log.clear()
-        eager.render(pose)
+        eager_render(eager, pose, **stages)
         before = counters()
         fast.render(pose)
         grown = {k: v - before[k] for k, v in counters().items()}
         call = fake.calls[i]
+        assert call["reproject"] == (i == 2)
         assert call["stages"] == [entry[0] for entry in log]
         assert call["stages"] == list(direct.frame_launches(
             i == 2, radius))
@@ -184,11 +189,10 @@ def test_outputs_and_state_are_new_views_laid_out_as_the_eager_ones(
     keeps its values through the next (the stand-in fills each arena
     with its call's number)."""
     eager = _renderer(radius)
-    eager.trace = lambda *a: trace_op.render_sample(*a)  # the eager path
     fast = _renderer(radius)
     held = []
     for i, pose in enumerate(POSES):
-        want = eager.render(pose, lean=lean)
+        want = eager_render(eager, pose, lean)
         got = fast.render(pose, lean=lean)
 
         def layout(d):
@@ -226,9 +230,9 @@ def test_outputs_and_state_are_new_views_laid_out_as_the_eager_ones(
 
 def test_a_plan_is_built_again_where_its_configuration_changes(
         fake, monkeypatch):
-    """Resize, a scene swap, new stages (as a hot-reload's hook sets
-    them) and a reloaded library each give a new plan; nothing else
-    does."""
+    """Resize, a scene swap, new denoise parameters, a hot-reload's hook
+    (which drops the plan) and a reloaded library each give a new plan;
+    nothing else does."""
     r = _renderer(2)
     r.render(POSE_A)
     plans = [r._plan]
@@ -248,33 +252,30 @@ def test_a_plan_is_built_again_where_its_configuration_changes(
     assert not step(lambda: setattr(r, "render_params",
                                     params.RenderParams(sun_yaw=0.5)))
 
-    def reload_trace_module():
-        new = lambda *a: trace_op.render_sample_plain(*a)  # noqa: E731
-        monkeypatch.setattr(trace_op, "render_sample", new)
-        r.trace = new
-
-    assert step(reload_trace_module)
+    assert step(reload.renderer_hook(r))
     other = FakeLibrary()
     assert step(lambda: monkeypatch.setattr(_build, "load", lambda: other))
     assert other.calls and r._plan.lib is other
     assert plans[-1].height == 10 and plans[-1].width == 20
 
 
-def test_swapped_stages_and_cpu_tensors_take_the_eager_path(fake,
-                                                            monkeypatch):
+def test_the_plan_engages_by_device_alone(fake, monkeypatch):
+    """A CUDA device always takes the direct path and the CPU never
+    does; ``frames.direct`` grows only where it is taken."""
     r = _renderer(0)
-    r.trace = lambda *a: trace_op.render_sample(*a)
     before = counters()["frames.direct"]
-    r.render(POSE_A)
+    r.render(POSE_A)  # the stand-in engages on these CPU tensors
+    assert len(fake.calls) == 1
+    assert counters()["frames.direct"] == before + 1
+    monkeypatch.undo()  # the real engages()
+    assert direct.engages(torch.device("cuda"))
+    assert direct.engages(torch.device("cuda", 1))
+    assert not direct.engages(torch.device("cpu"))
     r.render(POSE_B)
-    assert not fake.calls and r._plan is None
-    monkeypatch.undo()  # the real engages(): CPU tensors
     plain = _renderer(0)
     plain.render(POSE_A)
-    assert counters()["frames.direct"] == before
-    assert not direct.engages(torch.device("cpu"), plain._stages())
-    assert not direct.engages(torch.device("cuda"), r._stages())
-    assert direct.engages(torch.device("cuda"), plain._stages())
+    assert len(fake.calls) == 1 and plain._plan is None
+    assert counters()["frames.direct"] == before + 1
 
 
 def test_a_profiled_direct_frame_opens_its_spans(fake):
@@ -310,19 +311,22 @@ def test_the_plan_refuses_what_the_wrappers_refuse(fake):
 
 
 def test_frame_cu_reads_the_plan_and_stages_in_this_order():
-    """``csrc/frame.cu``'s ``Slot`` and ``Stage`` enums are
-    ``direct.SLOTS`` and ``direct.STAGE_BITS``."""
+    """``csrc/frame.cu``'s ``Slot`` enum is ``direct.SLOTS``, and its
+    frame calls the kernels' entries in ``direct.frame_launches`` order
+    for every flag and radius."""
     with open(FRAME_CU) as f:
         src = f.read()
     slots = re.search(r"enum Slot \{([^}]*)\}", src).group(1)
     names = [s.strip().lower() for s in slots.split(",") if s.strip()]
     assert names == [*direct.SLOTS, "n_slots"]
-    stages = dict(re.findall(r"(\w+) = (\d+)",
-                             re.search(r"enum Stage \{([^}]*)\}",
-                                       src).group(1)))
-    names = {"TRACE": "trace", "STILL": "still_epilogue",
-             "TEMPORAL": "temporal", "DENOISE": "denoise", "ENCODE": "encode"}
-    assert {names[k]: int(v) for k, v in stages.items()} == direct.STAGE_BITS
+    body = src[src.index("int frame("):src.index('extern "C" int vt_frame')]
+    calls = re.findall(r"rc = vt_(\w+)_launch\(", body)
+    assert calls == ["trace", "still_epilogue", "temporal", "denoise",
+                     "encode"]
+    for reproject in (False, True):
+        for radius in (0, 2):
+            want = direct.frame_launches(reproject, radius)
+            assert [c for c in calls if c in want] == list(want)
 
 
 @pytest.fixture
@@ -338,9 +342,9 @@ def cuda():
 def test_direct_and_eager_frames_are_bit_equal_on_the_card(
         cuda, scene, width, height, radius):
     """A seeded 64-frame orbit with holds and moves: every output and
-    state plane of the direct path is the eager path's, bit for bit, and
-    both launch the same kernels; only the direct path counts
-    ``frames.direct``."""
+    state plane of the direct path is the eager stages' (a
+    ``render_frame`` loop), bit for bit, and both launch the same
+    kernels; only the direct path counts ``frames.direct``."""
     from voxtracer_torch.app.renderbench import direct_against_eager
 
     got = direct_against_eager(scene, width, height, radius, turns=1)

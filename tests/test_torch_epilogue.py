@@ -26,6 +26,7 @@ from voxtracer.engine import params as jparams
 from voxtracer.ops import denoise_pallas
 from voxtracer.ops import temporal as jtemporal
 from voxtracer.ops import tonemap as jtonemap
+from voxtracer_torch.app.renderbench import eager_render
 from voxtracer_torch.engine import params as P
 from voxtracer_torch.engine import pipeline, reload
 from voxtracer_torch.engine.camera import Camera
@@ -367,17 +368,18 @@ def test_kernel_params_are_the_rows_slice():
         assert f'extern "C" int {name}(' in src
 
 
-def test_pipeline_counts_and_reloads_the_epilogue():
+def test_pipeline_counts_and_reloads_the_epilogue(monkeypatch):
     """Replays count the epilogue kernels; hot-reload watches their
-    module and rebinds their stages."""
+    module, and the renderer reads their stages from it at each frame."""
     kernels = pipeline.counted_kernels().values()
     assert epilogue.still_epilogue_cuda in kernels
     assert epilogue.encode_cuda in kernels
     assert "voxtracer_torch.ops.epilogue" in reload.WATCHED_MODULES
-    assert {"still_epilogue", "encode"} <= set(reload.STAGES)
     r = Renderer(scene=_scene(), height=8, width=8, device="cpu")
-    assert r.still_epilogue is epilogue.still_epilogue
-    assert r.encode is epilogue.encode
+    assert r._stages()[3:] == (epilogue.still_epilogue, epilogue.encode)
+    reloaded = lambda *a: epilogue.encode_plain(*a)  # noqa: E731
+    monkeypatch.setattr(epilogue, "encode", reloaded)
+    assert r._stages()[4] is reloaded
 
 
 # the composition each frame ran before the epilogue kernel: the still
@@ -428,14 +430,13 @@ def _cameras(path):
 @pytest.mark.parametrize("path", ["still", "moving"])
 def test_cpu_frames_equal_the_composition_before(path, radius, lean):
     """``Renderer(device="cpu")`` frames, state and outputs bit-equal to
-    the same frames with the still epilogue and encode stages forced to
-    the composition the port ran before."""
+    the same frames through ``render_frame`` with the still epilogue and
+    encode stages given as the composition the port ran before."""
     kw = dict(scene=_scene(), height=20, width=28, device="cpu",
               denoise_radius=radius, lean=lean)
     now, before = Renderer(**kw), Renderer(**kw)
-    before.still_epilogue, before.encode = _today_still, _today_encode
     for cam in _cameras(path):
-        got, want = now.render(cam), before.render(cam)
+        got, want = now.render(cam), _before(before, [cam])[0]
         assert sorted(got) == sorted(want)
         for k in want:
             assert torch.equal(got[k], want[k]), k
@@ -444,14 +445,22 @@ def test_cpu_frames_equal_the_composition_before(path, radius, lean):
     assert (got["image"].numpy() > 0).any()
 
 
+def _before(r, cams):
+    """Renderer ``r``'s next frames at ``cams`` through ``render_frame``
+    with the composition before the epilogue kernel: their outputs."""
+    return [eager_render(r, cam, still_epilogue=_today_still,
+                         encode=_today_encode) for cam in cams]
+
+
 @pytest.mark.parametrize("radius", [0, 2])
 def test_cpu_sequence_equals_the_composition_before(radius):
+    """A CPU sequence and burst equal as many frames of the composition
+    before the epilogue kernel."""
     kw = dict(scene=_scene(), height=20, width=28, device="cpu",
               denoise_radius=radius)
     now, before = Renderer(**kw), Renderer(**kw)
-    before.still_epilogue, before.encode = _today_still, _today_encode
     cams = _cameras("still")[:2] + _cameras("moving")[1:]
-    assert torch.equal(now.render_sequence(cams),
-                       before.render_sequence(cams))
+    assert torch.equal(now.render_sequence(cams), torch.stack(
+        [out["image"] for out in _before(before, cams)]))
     assert torch.equal(now.render_burst(cams[-1], 3),
-                       before.render_burst(cams[-1], 3))
+                       _before(before, [cams[-1]] * 3)[-1]["image"])

@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from voxtracer_torch.app import cli
-from voxtracer_torch.app.renderbench import _eager_trace, held_orbit
+from voxtracer_torch.app.renderbench import eager_render, held_orbit
 from voxtracer_torch.engine.camera import Camera
 from voxtracer_torch.engine.pipeline import Renderer, counters
 from voxtracer_torch.engine.scene import load_scene
@@ -235,12 +235,14 @@ def cuda():
     return torch.device("cuda")
 
 
-def _renderer(scene, path, size):
-    r = Renderer(scene=scene, height=size[0], width=size[1], device="cuda",
-                 denoise_radius=2, lean=True)
-    if path == "eager":
-        r.trace = _eager_trace
-    return r
+def _renderer(scene, size):
+    return Renderer(scene=scene, height=size[0], width=size[1],
+                    device="cuda", denoise_radius=2, lean=True)
+
+
+def _render(r, path, cam):
+    """``r``'s next frame by the direct path or the eager stages."""
+    return eager_render(r, cam) if path == "eager" else r.render(cam)
 
 
 RESIZE_AT, NEW_SIZE = 24, (144, 256)
@@ -260,7 +262,7 @@ def test_fetched_frames_equal_blocking_copies_on_the_card(cuda, path,
     on at 256x144."""
     scene = load_scene("menger")
     cams = held_orbit(scene, 48, seed=19)
-    r = _renderer(scene, path, (180, 320))
+    r = _renderer(scene, (180, 320))
     fetch = LookaheadFetch()
     before = counters()
     got, pushes = {}, 0
@@ -268,7 +270,7 @@ def test_fetched_frames_equal_blocking_copies_on_the_card(cuda, path,
         if interrupted and i == RESIZE_AT:
             fetch.drop()
             r.resize(*NEW_SIZE)
-        fetched = fetch.push(r.render(cam))
+        fetched = fetch.push(_render(r, path, cam))
         pushes += 1
         if fetched is not None:
             got[i - 1] = (fetched[0].copy(), fetched[1])
@@ -276,12 +278,12 @@ def test_fetched_frames_equal_blocking_copies_on_the_card(cuda, path,
     torch.cuda.synchronize()
     assert _grown(before) == {k: pushes for k in FETCH_COUNTERS}
 
-    twin = _renderer(scene, path, (180, 320))
+    twin = _renderer(scene, (180, 320))
     want = {}
     for i, cam in enumerate(cams):
         if interrupted and i == RESIZE_AT:
             twin.resize(*NEW_SIZE)
-        out = twin.render(cam)
+        out = _render(twin, path, cam)
         want[i] = (out["image"].cpu().numpy(), int(out["rays"].sum().cpu()))
     dropped = {RESIZE_AT - 1} if interrupted else set()
     assert sorted(got) == [i for i in range(len(cams)) if i not in dropped]
@@ -296,7 +298,7 @@ def test_copy_and_its_event_run_on_the_fetch_stream(cuda):
     """The slot's event is recorded on the fetch's stream: held up by
     work there, not by the compute stream; and the compute stream
     finishes a frame while its copy still waits."""
-    r = _renderer(load_scene("menger"), "direct", (180, 320))
+    r = _renderer(load_scene("menger"), (180, 320))
     fetch = LookaheadFetch()
     fetch.push(r.render(POSE_A))
     fetch.flush()

@@ -646,13 +646,15 @@ def _bump(path):
 
 def test_kernel_watcher_reloads_a_changed_module(fake_module):
     """The reference's fake-module reload (tests/test_app.py), with the
-    port's watcher and its renderer hook: the renderer's stage is looked
-    up again in the reloaded module and the sequence runner dropped."""
+    port's watcher and its renderer hook: the reloaded function takes
+    the old one's place in the same module object, where the renderer
+    reads its stages, and the hook drops the frame plan and the sequence
+    runner."""
     name = "voxtracer_torch_fake_kernel"
     f = fake_module(name, "def render_sample(*a):\n    return 1\n")
+    module = sys.modules[name]
     r = _port_renderer()
-    r.trace = sys.modules[name].render_sample
-    r._runner = object()
+    r._plan, r._runner = object(), object()
     calls = []
     hook = reload.renderer_hook(r)
     w = reload.KernelWatcher(on_reload=lambda: (calls.append(1), hook()),
@@ -661,12 +663,13 @@ def test_kernel_watcher_reloads_a_changed_module(fake_module):
     f.write_text("def render_sample(*a):\n    return 2\n")
     _bump(f)
     assert w.poll()
-    assert calls == [1] and r.trace() == 2 and r._runner is None
-    assert r.trace is sys.modules[name].render_sample
+    assert calls == [1] and module.render_sample() == 2
+    assert r._plan is None and r._runner is None
+    assert sys.modules[name] is module
     f.write_text("def render_sample(*a):\n    return (\n")  # broken
     _bump(f)
     assert not w.poll()
-    assert calls == [1] and r.trace() == 2
+    assert calls == [1] and module.render_sample() == 2
 
 
 def test_kernel_watcher_debounces(fake_module, monkeypatch):
@@ -717,17 +720,16 @@ class _FakeLoad:
 def test_kernel_watcher_rebuilds_a_changed_cuda_source(csrc_copy,
                                                       monkeypatch):
     """A changed ``.cu``: the stubbed build returns the new library's
-    path, ``load``'s cache is cleared, the stages are rebound and the
-    runner dropped."""
+    path, ``load``'s cache is cleared, and the frame plan and the runner
+    are dropped; the stages stay the package's."""
     built = []
     monkeypatch.setattr(_build, "build", lambda: built.append(1) or
                         "/lib/libvoxtracer_kernels-new.so")
     fake = _FakeLoad()
     monkeypatch.setattr(_build, "load", fake)
     r = _port_renderer()
-    trace = r.trace
-    r.trace = lambda *a: None  # a stage bound elsewhere stays as it is
-    r._runner = object()
+    stages = r._stages()
+    r._plan, r._runner = object(), object()
     w = reload.KernelWatcher(on_reload=reload.renderer_hook(r),
                              debounce=0.0)
     assert not w.poll() and not built
@@ -735,9 +737,9 @@ def test_kernel_watcher_rebuilds_a_changed_cuda_source(csrc_copy,
         f.write("\n// edited\n")
     _bump(csrc_copy / "reproject.cu")
     assert w.poll()
-    assert built == [1] and fake.cleared == 1 and r._runner is None
-    assert r.temporal.__module__ == "voxtracer_torch.ops.temporal"
-    assert r.trace is not trace and r.trace() is None
+    assert built == [1] and fake.cleared == 1
+    assert r._plan is None and r._runner is None
+    assert r._stages() == stages
     assert not w.poll()  # nothing changed since
 
 
@@ -750,16 +752,15 @@ def test_kernel_watcher_keeps_the_library_when_the_build_fails(csrc_copy,
     fake = _FakeLoad()
     monkeypatch.setattr(_build, "load", fake)
     r = _port_renderer()
-    runner, stages = object(), (r.trace, r.temporal, r.denoise)
-    r._runner = runner
+    plan, runner = object(), object()
+    r._plan, r._runner = plan, runner
     w = reload.KernelWatcher(on_reload=reload.renderer_hook(r),
                              debounce=0.0)
     with open(csrc_copy / "trace.cu", "a") as f:
         f.write("\nthis is not C++;\n")
     _bump(csrc_copy / "trace.cu")
     assert not w.poll()
-    assert fake.cleared == 0 and r._runner is runner
-    assert (r.trace, r.temporal, r.denoise) == stages
+    assert fake.cleared == 0 and r._runner is runner and r._plan is plan
     assert not w.poll()  # a failed source is tried again when it changes
 
 

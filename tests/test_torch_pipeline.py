@@ -229,17 +229,19 @@ MOVED = Camera(position=np.array([2.0, 3.0, -4.5]),
                direction=np.array([0.2, 0.1, 1.0]))
 
 
-def test_moved_camera_runs_the_reprojecting_stage():
+def test_moved_camera_runs_the_reprojecting_stage(monkeypatch):
     """The reprojecting blend runs exactly on frames whose camera moved
     while history was live, with the history's camera as the old one;
     the counters follow the reference's Renderer.render."""
     calls = []
+    blend = temporal.temporal_blend_reproject
 
     def spy(*args):
         calls.append(args[-1])
-        return temporal.temporal_blend_reproject(*args)
+        return blend(*args)
 
-    r = _small(temporal=spy)
+    monkeypatch.setattr(temporal, "temporal_blend_reproject", spy)
+    r = _small()
     r.render(CAM)  # frame 1: no history, the still blend
     r.render(CAM)  # at rest: the still blend
     assert calls == [] and r.still_sample == 2

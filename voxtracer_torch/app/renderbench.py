@@ -571,13 +571,24 @@ def held_orbit(scene, frames: int, seed: int):
     return cams[:frames]
 
 
-def _eager_trace(*args):
-    """The trace stage as another callable than the package's own, which
-    keeps a renderer on the eager stages (``engine/direct.py``
-    ``engages``)."""
-    from voxtracer_torch.ops import trace
+def eager_render(r, camera, lean=None, **stages):
+    """``r.render(camera)`` with the stages called one by one through
+    :func:`~voxtracer_torch.engine.pipeline.render_frame` (the package's
+    own, or those given by ``render_frame``'s names), on the renderer's
+    tables, state and counters: the eager frame that the direct path and
+    the kernels are held against."""
+    from voxtracer_torch.engine.pipeline import camera_moved, render_frame
 
-    return trace.render_sample(*args)
+    frame = r.frame_number + 1
+    cam = camera.rows(r.width, r.height)
+    moved = camera_moved(r.state, cam)
+    r.state, outputs = render_frame(
+        r.state, r.tables, r.noise, cam, r.render_params, r.temporal_params,
+        r.denoise_params, frame, r.height, r.width, r.denoise_radius,
+        r.lean if lean is None else lean, **stages)
+    r.frame_number = frame
+    r.still_sample = 1 if moved else r.still_sample + 1
+    return outputs
 
 
 def _same(a, b) -> bool:
@@ -599,11 +610,11 @@ def direct_against_eager(scene_name: str, width: int, height: int,
                          radius: int, frames: int = 64, seed: int = 15,
                          turns: int = 4):
     """The same seeded orbit of ``frames`` frames (:func:`held_orbit`)
-    through ``Renderer.render``'s direct path and its eager stages, on
-    the card: every frame's outputs (all of them: not lean) and state
-    compared bit for bit, the counters' growth on each path, then the
-    host's us a lean ``render()`` call (the viewers') of each, median
-    over the path's calls, ``turns`` times in turns
+    through ``Renderer.render``'s direct path and the eager stages
+    (:func:`eager_render`), on the card: every frame's outputs (all of
+    them: not lean) and state compared bit for bit, the counters' growth
+    on each path, then the host's us a lean frame call (the viewers') of
+    each, median over the path's calls, ``turns`` times in turns
     (direct, eager, eager, direct, ...), over bursts of the path that
     wait for nothing (the device synchronised between them), and the
     device's ms a frame from CUDA events around each burst."""
@@ -619,14 +630,14 @@ def direct_against_eager(scene_name: str, width: int, height: int,
     kw = dict(scene=scene, height=height, width=width, device="cuda",
               denoise_radius=radius)
     paths = {"direct": Renderer(**kw), "eager": Renderer(**kw)}
-    paths["eager"].trace = _eager_trace
+    render = {"direct": Renderer.render, "eager": eager_render}
     counts = {name: collections.Counter() for name in paths}
     differ = []
     for i, cam in enumerate(cams):
         got = {}
         for name, r in paths.items():
             before = counters()
-            out = r.render(cam, lean=False)
+            out = render[name](r, cam, False)
             counts[name].update({k: v - before[k]
                                  for k, v in counters().items()})
             got[name] = (out, r.state)
@@ -643,14 +654,14 @@ def direct_against_eager(scene_name: str, width: int, height: int,
         for name in (order if turn % 2 == 0 else order[::-1]):
             r = paths[name]
             r.reset_accumulation()
-            r.render(cams[0], lean=True)
+            render[name](r, cams[0], True)
             torch.cuda.synchronize()
             start, end = _events()
             calls = []
             start.record()
             for cam in cams:
                 t0 = time.perf_counter()
-                r.render(cam, lean=True)
+                render[name](r, cam, True)
                 calls.append(time.perf_counter() - t0)
             end.record()
             end.synchronize()

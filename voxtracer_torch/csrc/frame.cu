@@ -21,9 +21,9 @@
 // the denoise launch (ops/denoise.py tile_plan, its factor_dist table)
 // and each output's byte offset in the arena.  The caller packs the row
 // before each call; every entry copies its slice into the launch, so the
-// row may change once the call has returned.  `stages` names the kernels
-// to launch (`Stage` bits, engine/direct.py frame_launches); a set that
-// is not the one frame_stages runs for this radius is refused.
+// row may change once the call has returned.  The kernels follow from
+// `reproject` and the plan's radius, as frame_stages picks them
+// (engine/direct.py frame_launches states the same set in Python).
 
 #include <cuda_runtime.h>
 
@@ -72,8 +72,6 @@ enum Slot {
     AT_LINEAR, COUNTER_BYTES, N_SLOTS
 };
 
-enum Stage { TRACE = 1, STILL = 2, TEMPORAL = 4, DENOISE = 8, ENCODE = 16 };
-
 template <typename T>
 T* at(void* arena, int64_t offset) {
     return reinterpret_cast<T*>(static_cast<char*>(arena) + offset);
@@ -84,9 +82,13 @@ T ptr(const int64_t* plan, int slot) {
     return reinterpret_cast<T>(static_cast<intptr_t>(plan[slot]));
 }
 
+// frame_stages' kernels: the trace; the still epilogue (which at radius 0
+// also modulates and encodes) or, where a moved camera meets live history,
+// the temporal kernel; at radius >= 1 the denoise; the encode unless the
+// still epilogue did it
 int frame(const int64_t* plan, void* arena, float* old_color,
-          float* old_blend, float* old_depth, int stages, bool keep_linear,
-          void* stream) {
+          float* old_blend, float* old_depth, bool reproject,
+          bool keep_linear, void* stream) {
     const int h = static_cast<int>(plan[HEIGHT]);
     const int w = static_cast<int>(plan[WIDTH]);
     const int radius = static_cast<int>(plan[RADIUS]);
@@ -127,7 +129,7 @@ int frame(const int64_t* plan, void* arena, float* old_color,
         ptr<const float*>(plan, NOISE), n_slices, slice, h, w, 0, 1, color,
         normal, albedo, depth, node, counters, stream);
     if (rc) return rc;
-    if (stages & STILL) {
+    if (!reproject) {
         rc = vt_still_epilogue_launch(
             epilogue, nullptr, color, normal, depth, old_color, old_blend,
             old_depth, modulate, h, w, 0, blended, next_blend, linear_out,
@@ -140,7 +142,7 @@ int frame(const int64_t* plan, void* arena, float* old_color,
     }
     if (rc) return rc;
     const float* src = blended;
-    if (stages & DENOISE) {
+    if (radius) {
         rc = vt_denoise_launch(
             row + plan[ROW_DENOISE], ptr<const float*>(plan, FDIST), nullptr,
             blended, normal, depth, albedo, node, h, w, 0, radius,
@@ -154,7 +156,7 @@ int frame(const int64_t* plan, void* arena, float* old_color,
         if (rc) return rc;
         src = linear;
     }
-    if (stages & ENCODE) {
+    if (radius || reproject) {
         rc = vt_encode_launch(modulate ? epilogue : nullptr, nullptr, src,
                               modulate, h, w, h, w, linear_out, image,
                               nullptr, 1, stream);
@@ -166,21 +168,14 @@ int frame(const int64_t* plan, void* arena, float* old_color,
 
 // One viewer frame on `stream`, on the plan's device: its outputs in the
 // fresh `arena` (at the plan's offsets), the history read from the three
-// planes given.  Returns 0 or the first CUDA error; on an error the
-// launches before it stay enqueued.
+// planes given; `reproject` (0 or 1) where a moved camera meets live
+// history.  Returns 0 or the first CUDA error; on an error the launches
+// before it stay enqueued.
 extern "C" int vt_frame_launch(const int64_t* plan, void* arena,
                                float* old_color, float* old_blend,
-                               float* old_depth, int stages, int keep_linear,
-                               void* stream) {
-    const int radius = static_cast<int>(plan[RADIUS]);
-    const bool still = stages & STILL;
-    // frame_stages' frames and no other: a still frame at radius 0 is
-    // trace and still epilogue, a reprojecting one trace, temporal and
-    // encode; radius >= 1 adds the denoise and always encodes
-    const int want = TRACE | (still ? STILL : TEMPORAL) |
-                     (radius ? DENOISE : 0) |
-                     (radius || !still ? ENCODE : 0);
-    if (stages != want || radius < 0 || !arena)
+                               float* old_depth, int reproject,
+                               int keep_linear, void* stream) {
+    if ((reproject != 0 && reproject != 1) || plan[RADIUS] < 0 || !arena)
         return static_cast<int>(cudaErrorInvalidValue);
     const int device = static_cast<int>(plan[DEVICE]);
     int previous;
@@ -188,8 +183,8 @@ extern "C" int vt_frame_launch(const int64_t* plan, void* arena,
     if (err != cudaSuccess) return static_cast<int>(err);
     if (previous != device && (err = cudaSetDevice(device)) != cudaSuccess)
         return static_cast<int>(err);
-    int rc = frame(plan, arena, old_color, old_blend, old_depth, stages,
-                   keep_linear != 0, stream);
+    int rc = frame(plan, arena, old_color, old_blend, old_depth,
+                   reproject != 0, keep_linear != 0, stream);
     if (previous != device) {
         err = cudaSetDevice(previous);
         if (!rc) rc = static_cast<int>(err);

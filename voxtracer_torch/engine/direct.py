@@ -16,11 +16,10 @@ wrappers pass; the outputs and the new state are views of the arena.
 Every frame gets new memory, so a state or image held from one frame is
 never written by the next.
 
-It engages (:func:`engages`) on a CUDA device whose five stages are the
-package's own dispatchers; everything else (the CPU, stages swapped for
-a comparison, the mesh, the sequence and burst paths) runs the eager
-stages.  A frame plan adds to the wrappers' ``launches`` the kernels it
-enqueued, and to ``COUNTS["frames.direct"]`` the frame.
+It engages (:func:`engages`) on a CUDA device; the CPU, the mesh and the
+sequence and burst paths run the stages one by one.  A frame plan adds
+to the wrappers' ``launches`` the kernels it enqueued
+(:func:`frame_launches`), and to ``COUNTS["frames.direct"]`` the frame.
 """
 
 from __future__ import annotations
@@ -32,9 +31,9 @@ import torch
 
 from ..ops import denoise as denoise_op
 from ..ops import epilogue as epilogue_op
-from ..ops import temporal as temporal_op
 from ..ops import trace as trace_op
 from ..utils.timing import COUNTS, span
+from . import pipeline
 from .params import (
     ROW_DENOISE,
     ROW_FRAME,
@@ -60,9 +59,6 @@ SLOTS = (
     "at_depth", "at_node", "at_counters", "at_blended", "at_next_blend",
     "at_image", "at_linear", "counter_bytes",
 )
-# csrc/frame.cu `Stage`: the kernels a frame launches
-STAGE_BITS = {"trace": 1, "still_epilogue": 2, "temporal": 4, "denoise": 8,
-              "encode": 16}
 # each output's alignment in the arena (the kernels' vector paths need 16)
 ALIGN = 256
 
@@ -72,25 +68,17 @@ def frame_launches(reproject: bool, radius: int) -> Tuple[str, ...]:
     runs them: a still frame blends in the still epilogue (which at
     radius 0 also modulates and encodes), a reprojecting one in the
     temporal kernel; radius >= 1 denoises, and every frame but the still
-    one at radius 0 ends in the encode."""
+    one at radius 0 ends in the encode.  ``csrc/frame.cu`` picks the
+    same kernels from the same two values."""
     blend = "temporal" if reproject else "still_epilogue"
     if radius:
         return ("trace", blend, "denoise", "encode")
     return ("trace", blend, "encode") if reproject else ("trace", blend)
 
 
-def dispatchers() -> Tuple[Callable, ...]:
-    """The package's own stages (looked up at each call: a hot-reloaded
-    module has new ones), in ``Renderer._stages`` order."""
-    return (trace_op.render_sample, temporal_op.temporal_blend_reproject,
-            denoise_op.denoise, epilogue_op.still_epilogue,
-            epilogue_op.encode)
-
-
-def engages(device: torch.device, stages) -> bool:
-    """Whether a renderer on ``device`` with these stages takes the
-    direct path."""
-    return device.type == "cuda" and tuple(stages) == dispatchers()
+def engages(device: torch.device) -> bool:
+    """Whether a renderer on ``device`` takes the direct path."""
+    return device.type == "cuda"
 
 
 def _stream(index: int) -> int:
@@ -133,8 +121,6 @@ class FramePlan:
         self.index = -1 if self.device.index is None else self.device.index
         self.counted = {r: [kernels[s] for s in frame_launches(r, radius)]
                         for r in (False, True)}
-        self.stages = {r: sum(STAGE_BITS[s] for s in frame_launches(r, radius))
-                       for r in (False, True)}
         # host buffers the native call reads: held as long as the plan
         self.row = np.zeros(ROW_LEN, np.float32)
         self.geometry = tables.geometry()
@@ -241,8 +227,7 @@ class FramePlan:
                                 device=self.device)
             base = arena.data_ptr()
             err = self.launch(self.block_ptr, base, *history,
-                              self.stages[reproject], int(keep),
-                              _stream(self.index))
+                              int(reproject), int(keep), _stream(self.index))
         if err != 0:
             raise RuntimeError(f"frame launch failed: cudaError {err}")
         for kernel in self.counted[reproject]:
@@ -251,6 +236,9 @@ class FramePlan:
         return self._outputs(arena, base, cam, keep)
 
     def _outputs(self, arena, base: int, cam: np.ndarray, keep: bool):
+        """The frame's ``(state, outputs)``: views of the arena, built by
+        :func:`~voxtracer_torch.engine.pipeline.frame_outputs`; the image
+        is the encode's contiguous (H, W, 3) bytes."""
         h, w, at = self.height, self.width, self.at
         f32 = arena.view(torch.float32)
 
@@ -265,28 +253,14 @@ class FramePlan:
         self._history = ((blended, next_blend, depth),
                          (base + at["blended"], base + at["next_blend"],
                           base + at["depth"]))
-        new_state = {
-            "accum_color": blended,
-            "accum_blend": next_blend,
-            "old_depth": depth,
-            "old_cam": np.array(cam, np.float32),
-            "history_valid": True,
-        }
-        outputs = {
-            "image": arena.as_strided((h, w, 3), (3 * w, 3, 1), at["image"]),
-            "depth": depth,
-            "rays": arena.view(torch.int64).as_strided(
-                (trace_op.N_PHASES,), (1,), at["counters"] // 8),
-        }
-        if keep:
-            def hwc(name):  # torch.movedim of a planar plane's view
-                return f32.as_strided((h, w, 3), (w, 1, h * w), at[name] // 4)
-
-            outputs.update({
-                "linear": hwc("linear"),
-                "trace_color": hwc("color"),
-                "normal": hwc("normal"),
-                "albedo": hwc("albedo"),
-                "node": flat("node", arena.view(torch.int32)),
-            })
-        return new_state, outputs
+        gbuf = {"depth": depth,
+                "rays": arena.view(torch.int64).as_strided(
+                    (trace_op.N_PHASES,), (1,), at["counters"] // 8)}
+        if keep:  # the planes a lean frame's outputs leave out
+            gbuf.update({name: planar(name)
+                         for name in ("color", "normal", "albedo")})
+            gbuf["node"] = flat("node", arena.view(torch.int32))
+        image = arena.as_strided((h, w, 3), (3 * w, 3, 1), at["image"])
+        return pipeline.frame_outputs(
+            cam, gbuf, blended, next_blend,
+            planar("linear") if keep else None, image, not keep)

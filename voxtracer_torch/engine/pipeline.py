@@ -22,7 +22,8 @@ epilogue), 3 (moving, r = 0: + temporal + encode) or 4 (r >= 1: trace,
 temporal kernel or the still epilogue's blend alone, denoise, encode).
 ``Renderer.render`` there enqueues them with one native call from a
 frame plan checked once (:mod:`.direct`), the same kernels on the same
-inputs; stages swapped for others run through :func:`frame_stages`.
+inputs; on the CPU it runs the stages one by one (:func:`render_frame`).
+Both paths build a frame's state and outputs with :func:`frame_outputs`.
 
 The first frame after construction, ``reset_accumulation`` or a resize
 has no live history.  The reference sends it through the moving
@@ -231,7 +232,7 @@ def render_frame(
     """One frame: ``(state, outputs)``.  ``trace``, ``temporal`` (the
     reprojecting blend), ``denoise``, ``still_epilogue`` and ``encode``
     are the device stages; only a comparison of the kernels with their
-    plain versions replaces them."""
+    plain versions (or with other compositions) passes others."""
     with span("vt.render.pack"):
         row = pack_frame_rows(
             [cam], state["old_cam"], state["history_valid"], frame_number,
@@ -243,7 +244,18 @@ def render_frame(
         height, width, radius, trace, temporal, denoise, still_epilogue,
         encode, keep_linear=not lean,
     )
-    new_state = {
+    return frame_outputs(cam, gbuf, blended, next_blend, out, image, lean)
+
+
+def frame_outputs(cam: np.ndarray, gbuf, blended, next_blend, linear, image,
+                  lean: bool):
+    """A frame's ``(state, outputs)`` from its planar tensors, on either
+    path (:func:`render_frame`, :class:`.direct.FramePlan`): the new
+    state, and the outputs ``image``, ``depth`` and ``rays``; unless
+    ``lean`` also the ``linear`` frame and the G-buffer's ``color``,
+    ``normal`` and ``albedo`` as (H, W, 3) views, and its ``node`` ids,
+    which ``gbuf`` then holds."""
+    state = {
         "accum_color": blended,
         "accum_blend": next_blend,
         "old_depth": gbuf["depth"],
@@ -259,22 +271,20 @@ def render_frame(
         hwc = lambda a: torch.movedim(a, 0, -1)  # noqa: E731
         outputs.update(
             {
-                "linear": hwc(out),
+                "linear": hwc(linear),
                 "trace_color": hwc(gbuf["color"]),
                 "normal": hwc(gbuf["normal"]),
                 "albedo": hwc(gbuf["albedo"]),
                 "node": gbuf["node"],
             }
         )
-    return new_state, outputs
+    return state, outputs
 
 
 def counted_kernels() -> Dict[str, Callable]:
     """The frame kernels' wrappers by stage: a replayed graph adds what
-    they counted while it was captured.  A stage swapped for another
-    callable is accounted as far as it launches through these.  Looked
-    up at each call: a hot-reloaded module (``engine/reload.py``) has
-    new ones."""
+    they counted while it was captured.  Looked up at each call: a
+    hot-reloaded module (``engine/reload.py``) has new ones."""
     return {
         "trace": trace_op.render_sample_cuda,
         "temporal": temporal_op.temporal_blend_reproject_cuda,
@@ -433,12 +443,11 @@ class Renderer:
     """Host-side frame loop: owns the scene tables, noise and state on
     ``device`` and advances frames (the reference's frame and
     still-sample counters, camera-motion detection, scene swap, resize).
-    ``device="cuda"`` without a usable GPU raises.  ``trace``,
-    ``temporal``, ``denoise``, ``still_epilogue`` and ``encode`` are the
-    frame's device stages (see :func:`render_frame`).  ``render`` is the
-    realtime frame; ``render_sequence`` and ``render_burst`` render a
-    camera path known up front with one host call, and leave state and
-    counters as that many ``render`` calls would."""
+    ``device="cuda"`` without a usable GPU raises.  It runs the package's
+    own stages (:meth:`_stages`).  ``render`` is the realtime frame;
+    ``render_sequence`` and ``render_burst`` render a camera path known
+    up front with one host call, and leave state and counters as that
+    many ``render`` calls would."""
 
     scene: GridScene
     height: int
@@ -450,11 +459,6 @@ class Renderer:
     denoise_radius: int = DENOISE_RADIUS_DEFAULT
     noise_buffer: Optional[np.ndarray] = None
     lean: bool = False
-    trace: Callable = trace_op.render_sample
-    temporal: Callable = temporal_op.temporal_blend_reproject
-    denoise: Callable = denoise_op.denoise
-    still_epilogue: Callable = epilogue_op.still_epilogue
-    encode: Callable = epilogue_op.encode
 
     def __post_init__(self):
         self.device = torch.device(self.device)
@@ -504,40 +508,24 @@ class Renderer:
         """The next frame at ``camera``: its outputs (``image``, ``depth``,
         ``rays``, and unless ``lean`` the planes of :func:`render_frame`)
         and the new state, in memory that no later frame writes.  On the
-        card with the package's own stages one native call enqueues it
-        (:mod:`.direct`), else the stages run one by one
-        (:func:`render_frame`)."""
+        card one native call enqueues it (:mod:`.direct`); on the CPU the
+        stages run one by one (:func:`render_frame`)."""
         frame = self.frame_number + 1
         lean = self.lean if lean is None else lean
         with span("vt.render", {"frame": frame}):
             cam = camera.rows(self.width, self.height)
             moved = camera_moved(self.state, cam)
-            plan = self._frame_plan()
-            if plan is not None:
-                self.state, outputs = plan.render(
+            if direct.engages(self.device):
+                self.state, outputs = self._frame_plan().render(
                     self.state, cam, self.state["history_valid"] and moved,
                     frame, self.render_params, self.temporal_params,
                     self.denoise_params, lean)
             else:
                 self.state, outputs = render_frame(
-                    self.state,
-                    self.tables,
-                    self.noise,
-                    cam,
-                    self.render_params,
-                    self.temporal_params,
-                    self.denoise_params,
-                    frame,
-                    self.height,
-                    self.width,
-                    radius=self.denoise_radius,
-                    lean=lean,
-                    trace=self.trace,
-                    temporal=self.temporal,
-                    denoise=self.denoise,
-                    still_epilogue=self.still_epilogue,
-                    encode=self.encode,
-                )
+                    self.state, self.tables, self.noise, cam,
+                    self.render_params, self.temporal_params,
+                    self.denoise_params, frame, self.height, self.width,
+                    self.denoise_radius, lean, *self._stages())
         self.frame_number = frame
         self.still_sample = 1 if moved else self.still_sample + 1
         return outputs
@@ -589,29 +577,31 @@ class Renderer:
         self.state["old_cam"] = np.array(last_cam, np.float32)
         self.state["history_valid"] = True
 
-    def _stages(self):
-        return (self.trace, self.temporal, self.denoise, self.still_epilogue,
-                self.encode)
+    @staticmethod
+    def _stages() -> Tuple[Callable, ...]:
+        """The package's stages, in :func:`frame_stages` order, read from
+        their modules at each call: ``importlib.reload`` refills the same
+        module objects, so a hot-reloaded module's (``engine/reload.py``)
+        are picked up."""
+        return (trace_op.render_sample, temporal_op.temporal_blend_reproject,
+                denoise_op.denoise, epilogue_op.still_epilogue,
+                epilogue_op.encode)
 
     def _config_key(self) -> tuple:
         """What a frame plan and a sequence runner freeze: size, radius,
-        tables, noise, stages and the denoise kernel's by-value
-        parameters."""
+        tables, noise and the denoise kernel's by-value parameters."""
         p = self.denoise_params
         return (
             self.height, self.width, self.denoise_radius, id(self.tables),
-            id(self.noise), *self._stages(),
+            id(self.noise),
             # by value in the denoise kernel's launch
             (p.sigma_distance, p.sigma_range, p.albedo_factor)
             if self.denoise_radius else None,
         )
 
-    def _frame_plan(self) -> Optional[direct.FramePlan]:
-        """The frame plan of this configuration and kernel library, or
-        None where the direct path does not engage; a new one once either
-        has changed."""
-        if not direct.engages(self.device, self._stages()):
-            return None
+    def _frame_plan(self) -> direct.FramePlan:
+        """The frame plan of this configuration and kernel library; a new
+        one once either has changed."""
         lib = _build.load()
         key = (*self._config_key(), lib)
         if self._plan is None or self._plan.key != key:

@@ -44,24 +44,16 @@ WATCHED_MODULES = (
     "voxtracer_torch.ops.epilogue",
 )
 
-# the Renderer's stage callables, bound when it is built
-STAGES = ("trace", "temporal", "denoise", "still_epilogue", "encode")
-
 
 def renderer_hook(renderer) -> Callable[[], None]:
-    """The ``on_reload`` of a viewer's renderer: each stage callable is
-    looked up again by module and name (a reloaded module's functions
-    are new objects, and the renderer holds the old ones), and the
-    sequence path's runner is dropped, so that no CUDA graph replays a
-    kernel of the library it replaced."""
+    """The ``on_reload`` of a viewer's renderer: its frame plan and its
+    sequence runner are dropped.  The next frame builds a plan that
+    counts the reloaded wrappers and calls the library loaded now, and
+    no CUDA graph replays a kernel of the library it replaced; the
+    stages themselves are read from their modules at each frame."""
 
     def on_reload():
-        for stage in STAGES:
-            fn = getattr(renderer, stage)
-            module = sys.modules.get(getattr(fn, "__module__", ""))
-            new = getattr(module, getattr(fn, "__name__", ""), None)
-            if callable(new):
-                setattr(renderer, stage, new)
+        renderer._plan = None
         renderer._runner = None
 
     return on_reload

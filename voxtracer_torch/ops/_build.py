@@ -192,8 +192,8 @@ def load() -> ctypes.CDLL:
     #   linear, image, slot, n_images, stream) -> cudaError_t
     lib.vt_encode_launch.argtypes = [p] * 4 + [i] * 4 + [p] * 3 + [i, p]
     lib.vt_encode_launch.restype = ctypes.c_int
-    # vt_frame_launch(plan, arena, old_color, old_blend, old_depth, stages,
-    #   keep_linear, stream) -> cudaError_t (engine/direct.py)
+    # vt_frame_launch(plan, arena, old_color, old_blend, old_depth,
+    #   reproject, keep_linear, stream) -> cudaError_t (engine/direct.py)
     lib.vt_frame_launch.argtypes = [p] * 5 + [i, i, p]
     lib.vt_frame_launch.restype = ctypes.c_int
     lib.vt_frame_slots.argtypes = []
