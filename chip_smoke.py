@@ -219,6 +219,16 @@ Phases (each prints one line; any failure raises and exits non-zero):
     same kernels launched, ``frames.direct`` 64 on the direct path
     alone; then the host's us a lean frame call of each path and the
     device's ms a frame, 4 turns each, in turns.
+27. the scene build on the card (``engine/scene.py`` ``SceneTables``,
+    ``scene/device_build.py``): the card's tests of it (``pytest
+    --noconftest -m cuda tests/test_torch_scene_device_build_cuda.py``:
+    the full bowl, menger and monu9 bit-equal to the host build, its
+    counters and spans); then the procedural bowl (radius 256) built
+    on the host and copied, as a CPU ``SceneTables`` builds it, and
+    built on the card, in turns, three each: the parts of the
+    benchmark's ``scene_build_s`` (``scene.load_us`` once, the tables'
+    and the copies' us), the device memory each build takes at its
+    peak, every build's tables bit-equal to the first's.
 
 Then (phase 15) checks that no module of the JAX package
 (``voxtracer``), JAX or Triton was imported, prints the per-kernel JSON
@@ -2681,6 +2691,64 @@ def phase_direct(smi):
         assert "frames.direct" not in eager
 
 
+def phase_scene_build(smi):
+    """Phase 27: the scene tables built on the card against the host
+    build, on the bowl, in turns."""
+    from voxtracer_torch.engine.pipeline import counters
+    from voxtracer_torch.engine.scene import TABLES, SceneTables, load_scene
+
+    tests = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "--noconftest", "-m", "cuda",
+         "-p", "no:cacheprovider",
+         "tests/test_torch_scene_device_build_cuda.py"],
+        capture_output=True, text=True, cwd=HERE)
+    summary = tests.stdout.strip().splitlines()[-1:]
+    assert tests.returncode == 0, tests.stdout[-4000:] + tests.stderr[-2000:]
+
+    card = torch.device("cuda")
+    before = counters()
+    scene = load_scene("default")
+    load_us = counters()["scene.load_us"] - before["scene.load_us"]
+
+    def host_build():
+        t0 = time.perf_counter_ns()
+        t = scene.device_tables()
+        t1 = time.perf_counter_ns()
+        out = {name: torch.from_numpy(np.ascontiguousarray(t[name])).to(card)
+               for name in TABLES}
+        torch.cuda.synchronize(card)
+        return out, (t1 - t0) // 1000, (time.perf_counter_ns() - t1) // 1000
+
+    def card_build():
+        start = counters()
+        tables = SceneTables(scene, card)
+        grown = {k: v - start[k] for k, v in counters().items()}
+        assert grown["scene.device_builds"] == 1, grown
+        return ({name: getattr(tables, name) for name in TABLES},
+                grown["scene.tables_us"], grown["scene.upload_us"])
+
+    first, rows = None, []
+    for side in ("host", "card", "card", "host", "host", "card"):
+        torch.cuda.synchronize(card)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(card)
+        held = torch.cuda.memory_allocated(card)
+        tables, tables_us, upload_us = (
+            host_build if side == "host" else card_build)()
+        peak = torch.cuda.max_memory_allocated(card) - held
+        first = first or tables
+        same = all(torch.equal(tables[n], first[n]) for n in TABLES)
+        rows.append({"side": side, "tables_us": tables_us,
+                     "upload_us": upload_us,
+                     "scene_build_s": (load_us + tables_us + upload_us) / 1e6,
+                     "peak_bytes": peak, "bit_equal": same})
+        del tables
+    say(27, f"scene build tests on the card: {summary}; the bowl "
+            f"{scene.values.shape}: load_us {load_us} once, then in turns "
+            f"{json.dumps(rows)} [{smi}]")
+    assert all(r["bit_equal"] for r in rows), rows
+
+
 def check_no_jax_package():
     """The run imported nothing of the JAX package, JAX or Triton."""
     bad = sorted(m for m in sys.modules
@@ -2733,6 +2801,7 @@ def main():
     bake_counts = phase_bake(smi)
     phase_tracing(smi)
     phase_direct(smi)
+    phase_scene_build(smi)
     check_no_jax_package()
     # The trace's and the still epilogue's launches come from the main
     # path (config 2, phase 4), the trace's times and bound too, the

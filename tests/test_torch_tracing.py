@@ -155,8 +155,9 @@ def test_counters_follow_the_wrappers_and_never_decrease(monkeypatch):
         "launches.resample", "launches.still_epilogue", "launches.encode",
         "graph.captures", "graph.replays", "kernel.builds", "host.waits",
         "frames.direct", "fetch.copies", "fetch.stream_copies",
-        "scene.builds", "scene.load_us", "scene.tables_us",
-        "scene.upload_us", "scene.table_bytes", "scene.per_node"}
+        "scene.builds", "scene.device_builds", "scene.load_us",
+        "scene.tables_us", "scene.upload_us", "scene.table_bytes",
+        "scene.per_node"}
     assert all(isinstance(v, int) for v in before.values())
     monkeypatch.setattr(trace_op.render_sample_cuda, "launches",
                         trace_op.render_sample_cuda.launches + 5)

@@ -15,14 +15,21 @@ rather than let the index wrap.
 The build is set-up work, and it is traced as the frames are
 (``utils.timing``): spans ``vt.scene.voxels`` and ``vt.scene.grid``
 (:func:`load_scene`), ``vt.scene.tables`` with ``vt.scene.distance``
-and ``vt.scene.nodes`` inside it (``device_tables()``) and
-``vt.scene.upload``, and the ``scene.*`` counts of its host
-microseconds, bytes and brick layout.
+(twice) and ``vt.scene.nodes`` inside it, and the ``scene.*`` counts of
+its microseconds, bytes and brick layout.  Where the tables go and the
+grid's size decide where they are built (:func:`builds_on_device`): on
+a CUDA device, for a grid past the size where that is faster, with
+torch ops there (``scene/device_build.py``: the value grid's one copy,
+span ``vt.scene.upload``, inside ``vt.scene.tables``; counted by
+``scene.device_builds``); else by ``GridScene.device_tables()`` on the
+host, then copied (``vt.scene.upload`` after ``vt.scene.tables``).
+Both give the same bits.
 """
 
 from __future__ import annotations
 
 import glob
+import math
 import os
 import time
 
@@ -37,6 +44,7 @@ from ..scene import (  # noqa: F401  (re-exported scene types)
     default_scene,
     voxels_from_vox,
 )
+from ..scene.device_build import device_tables as scene_device_tables
 from ..utils.timing import COUNTS, span
 
 ASSET_DIR = os.path.join(
@@ -85,6 +93,21 @@ def load_voxels(name: str) -> VoxelList:
 INT32_LIMIT = 1 << 31
 TABLES = ("packed_idx", "meta_idx", "brick_idx", "palette")
 
+# The card builds a scene's tables in about 0.5 s whatever its size (the
+# first launch of each torch kernel family in a process loads its
+# module), the host in about 170 ns a cell; the two meet near 4 M cells
+# on an NVIDIA H100 (PERF.md, section 6).  Every ``.vox`` asset lies
+# below, the default bowl (71 M cells) far above.
+DEVICE_BUILD_MIN_CELLS = 1 << 22
+
+
+def builds_on_device(scene: GridScene, device) -> bool:
+    """Whether :class:`SceneTables` builds ``scene``'s tables on
+    ``device`` itself: a CUDA device and a grid of at least
+    ``DEVICE_BUILD_MIN_CELLS`` cells; else the host builds them."""
+    return (torch.device(device).type == "cuda"
+            and scene.values.size >= DEVICE_BUILD_MIN_CELLS)
+
 
 def check_table_addressing(dims, zw, l3_dims, numel, brick_dedup):
     """Raise ``ValueError``, naming the table and its size, if a table's
@@ -131,21 +154,31 @@ class SceneTables(nn.Module):
     def __init__(self, scene: GridScene, device):
         super().__init__()
         device = torch.device(device)
+        on_device = builds_on_device(scene, device)
         t0 = time.perf_counter_ns()
         with span("vt.scene.tables"):
-            t = scene.device_tables()
+            if on_device:
+                t = scene_device_tables(scene.values, device)
+                torch.cuda.synchronize(device)
+            else:
+                t = scene.device_tables()
         t1 = time.perf_counter_ns()
         check_table_addressing(
             scene.values.shape, t["zw"], t["l3_dims"],
-            {name: t[name].size for name in TABLES},
+            {name: math.prod(t[name].shape) for name in TABLES},
             int(t["brick_idx"].shape[0]) == 3)
         t2 = time.perf_counter_ns()
-        with span("vt.scene.upload"):
+        if on_device:  # born on the device: nothing to copy
             for name in TABLES:
-                arr = np.ascontiguousarray(t[name], dtype=np.int32)
-                self.register_buffer(name, torch.from_numpy(arr).to(device))
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
+                self.register_buffer(name, t[name])
+        else:
+            with span("vt.scene.upload"):
+                for name in TABLES:
+                    arr = np.ascontiguousarray(t[name], dtype=np.int32)
+                    self.register_buffer(name,
+                                         torch.from_numpy(arr).to(device))
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
         t3 = time.perf_counter_ns()
         self.dims = tuple(int(d) for d in scene.values.shape)
         self.origin = tuple(int(v) for v in scene.origin)
@@ -155,6 +188,7 @@ class SceneTables(nn.Module):
         if self.palette.numel() != 1024:
             raise ValueError("palette must hold 1024 slots")
         COUNTS["scene.builds"] += 1
+        COUNTS["scene.device_builds"] += int(on_device)
         COUNTS["scene.tables_us"] += (t1 - t0) // 1000
         COUNTS["scene.upload_us"] += (t3 - t2) // 1000
         COUNTS["scene.table_bytes"] += sum(

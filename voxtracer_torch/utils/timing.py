@@ -51,8 +51,9 @@ COUNTS: Dict[str, int] = {
     "fetch.stream_copies": 0,  # one enqueued on the fetch's copy stream
     # ``engine/scene.py``: the scene build (set-up only)
     "scene.builds": 0,  # a ``SceneTables``
+    "scene.device_builds": 0,  # one whose tables were built on a CUDA device
     "scene.load_us": 0,  # ``load_scene``: voxels and grid, host us
-    "scene.tables_us": 0,  # ``GridScene.device_tables()``, host us
+    "scene.tables_us": 0,  # the tables' build (host or device), us
     "scene.upload_us": 0,  # the tables' copies to the device, host us
     "scene.table_bytes": 0,  # the four tables' bytes
     "scene.per_node": 0,  # builds whose ``brick_idx`` has 2 planes
