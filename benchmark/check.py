@@ -17,7 +17,7 @@ rounds otherwise on the card moves one path's colour, which the share
 counts once.  The control (the reference with its planes in bfloat16)
 moves nearly every value.  The reference takes from the program only the
 state that a unit kept in the window started from; the cameras (the
-previous frame's included), frame numbers and the validity of the
+previous frame's included), suns, frame numbers and the validity of the
 history are the harness's own.  One unit a run, the warm-up's frames,
 starts from the reference's own fresh state, so the state the program
 carries is also held against a chain the reference computed alone.
@@ -25,6 +25,7 @@ carries is also held against a chain the reference computed alone.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List
 
 import numpy as np
@@ -95,10 +96,20 @@ def ref_state(snap, width: int, height: int, device, idx=None) -> Dict:
     return state
 
 
+def sun_params(yaw) -> ref_frame.RenderParams:
+    """The reference's parameters of a frame at the sun's ``yaw`` (None:
+    the default sun), the rest of them the defaults."""
+    return ref_frame.RP if yaw is None else dataclasses.replace(
+        ref_frame.RP, sun_yaw=yaw)
+
+
 def frame_jobs(snap, width: int, height: int):
-    """The camera rows and frame numbers of a unit's whole frames."""
+    """The camera rows, frame numbers and parameters of a unit's whole
+    frames, each at the sun its traffic gave it."""
     cams = [ref_frame.camera_rows(p, d, width, height) for p, d in snap.cams]
-    return cams, [snap.first_frame + j for j in range(len(cams))]
+    suns = snap.suns if snap.suns is not None else [None] * len(cams)
+    return (cams, [snap.first_frame + j for j in range(len(cams))],
+            [sun_params(y) for y in suns])
 
 
 def compare_frames(tables, noise, snap, radius: int, traces,
@@ -108,14 +119,14 @@ def compare_frames(tables, noise, snap, radius: int, traces,
     ``image_off`` and the ``state_off`` after the last frame."""
     h, w = traces[0]["depth"].shape
     dev = tables.device
-    cams, frames = frame_jobs(snap, w, h)
+    cams, frames, params = frame_jobs(snap, w, h)
     images, states = ref_frame.render_frames(
         tables, noise, ref_state(snap, w, h, dev), cams, frames, radius,
-        traces=traces)
+        traces=traces, params=params)
     if lowp:
         got_images, got_state = ref_frame.render_frames(
             tables, noise, ref_state(snap, w, h, dev), cams, frames, radius,
-            lowp=True, traces=traces)
+            lowp=True, traces=traces, params=params)
         got_state = got_state[-1]
     else:
         got_images, got_state = snap.images, snap.state_after

@@ -19,6 +19,9 @@ class Driver:
     def __init__(self, renderer, traffic, workload):
         from voxtracer_torch.engine.camera import Camera
 
+        if traffic.sun_yaw(0) is not None:
+            raise ValueError("a traffic that steps the sun needs the view "
+                             "driver")
         self.r = renderer
         self.n = int(workload["traffic"]["burst"])
         pos, d = traffic.camera(0)

@@ -31,15 +31,18 @@ def state_copy(renderer) -> Dict:
 class Snapshot:
     """One unit of work kept for the check: the state before it (None
     for the warm-up's unit, which starts from a fresh state), its
-    cameras and first frame number, the state after it and the u8
+    cameras, suns and first frame number, the state after it and the u8
     images that reached the host."""
 
     def __init__(self, kind: str, state_before: Dict, cams: List,
-                 first_frame: int, prev_pose):
+                 first_frame: int, prev_pose, suns: Optional[List] = None):
         self.kind = kind
         self.state_before = state_before
         self.prev_pose = prev_pose  # the pose of the frame before it
         self.cams = cams  # [(position, direction)] a frame
+        # the sun's yaw a frame (None: the program's default sun); None
+        # for the whole unit where every frame is at the default sun
+        self.suns = suns
         self.first_frame = first_frame
         self.state_after: Optional[Dict] = None
         self.images: List[np.ndarray] = []

@@ -18,6 +18,9 @@ class Driver:
     def __init__(self, renderer, traffic, workload):
         from voxtracer_torch.engine.camera import Camera
 
+        if traffic.sun_yaw(0) is not None:
+            raise ValueError("a traffic that steps the sun needs the view "
+                             "driver")
         self.r = renderer
         self.traffic = traffic
         self.Camera = Camera

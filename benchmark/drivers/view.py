@@ -8,9 +8,16 @@ frame returns; its latency runs from the start of its ``render()``.
 A snapshot is two consecutive frames of one kind (``moving``: both
 moved, each reprojects the other's history; ``held``: both at the pose
 of the frame before them, still blends), so the check sees the state
-that a frame carries into the next."""
+that a frame carries into the next.
+
+Where the traffic steps the sun, each frame's yaw is set before its
+``render()`` by replacing ``Renderer.render_params``, as the port's
+BASELINE config 5 and a viewer's sun slider do; a traffic without a sun
+leaves ``render_params`` as it is."""
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
@@ -34,16 +41,28 @@ class Driver:
         pos, d = self.traffic.camera(i)
         return self.Camera(position=pos, direction=d)
 
+    def sun(self, i):
+        """Set frame ``i``'s sun where the traffic steps it; returns its
+        yaw (None: the program's own)."""
+        yaw = self.traffic.sun_yaw(i)
+        if yaw is not None:
+            self.r.render_params = dataclasses.replace(self.r.render_params,
+                                                       sun_yaw=yaw)
+        return yaw
+
     def warm(self):
-        """A still frame without history, a reprojecting frame and a
-        still frame with history, each pushed (both pinned slots): the
-        warm-up's unit for the check, from a fresh state."""
-        snap = Snapshot("warm", None, [], self.r.frame_number + 1, None)
+        """A still frame without history, a reprojecting frame (still,
+        where the traffic holds its camera) and a still frame with
+        history, each pushed (both pinned slots), at the suns of the
+        traffic's frames 0-2: the warm-up's unit for the check, from a
+        fresh state."""
+        snap = Snapshot("warm", None, [], self.r.frame_number + 1, None, [])
         c0 = self.camera(0)
         pos, d = self.traffic.path(self.traffic.t0 + self.traffic.dt)
         c1 = self.Camera(position=pos, direction=d)
-        for cam in (c0, c1, c1):
+        for i, cam in enumerate((c0, c1, c1)):
             snap.cams.append((cam.position, cam.direction))
+            snap.suns.append(self.sun(i))
             got = self.fetch.push(self.r.render(cam))
             if got is not None:
                 snap.images.append(np.array(got[0]))
@@ -76,10 +95,12 @@ class Driver:
                 kind = arm.due((t - t_start) / seconds, self._kind_ok(i))
                 if kind:
                     snap = Snapshot(kind, state_copy(self.r), [],
-                                    self.r.frame_number + 1, self.prev_pose)
+                                    self.r.frame_number + 1, self.prev_pose,
+                                    [])
                     snaps.append(snap)
                     taking = [snap, 2]
             cam = self.camera(i)
+            yaw = self.sun(i)
             self.prev_pose = (cam.position, cam.direction)
             calls.append(now())
             with span("render"):
@@ -95,6 +116,7 @@ class Driver:
             if taking:
                 snap = taking[0]
                 snap.cams.append((cam.position, cam.direction))
+                snap.suns.append(yaw)
                 waiting[k] = snap
                 taking[1] -= 1
                 if taking[1] == 0:
@@ -120,11 +142,12 @@ class Driver:
         kept = []
         for j in range(units):
             cam = self.camera(self.i)
+            yaw = self.sun(self.i)
             if j in picks:
                 kept.append((j, Snapshot("pick", state_copy(self.r),
                                          [(cam.position, cam.direction)],
                                          self.r.frame_number + 1,
-                                         self.prev_pose)))
+                                         self.prev_pose, [yaw])))
             self.prev_pose = (cam.position, cam.direction)
             with span("render"):
                 out = self.r.render(cam)

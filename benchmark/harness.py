@@ -4,8 +4,9 @@ One run of one cell: ``run.py --workload <cell> --seed <n> --seconds <s>
 --trace <0|1>``.  Everything is found by name:
 
 * ``benchmark/workloads/<cell>.json``: the cell's configuration, its
-  traffic (driver kind, camera path and parameters, segment rule, burst
-  or batch length), its check and the check's limits;
+  traffic (driver kind, camera path and parameters, segment rule or a
+  held camera, a stepped sun, burst or batch length), its check and the
+  check's limits;
 * ``benchmark/configs/<config>.json``: scene, size, denoise radius;
 * ``benchmark/drivers/<kind>.py``: the loop that drives the program;
 * ``benchmark/paths/<name>.py``: a camera path;
@@ -306,10 +307,11 @@ def reference_check(cfg: dict, wl: dict, snapshots, picks, seed: int,
     jobs = [] if burst else [check.frame_jobs(s, w, h) for s in snapshots]
     jobs += [check.frame_jobs(snap, w, h) for _, snap in picks]
     traces = ref_frame.trace_batch(
-        tables, noise, [c for cams, _ in jobs for c in cams],
-        [f for _, frames in jobs for f in frames], h, w) if jobs else []
+        tables, noise, [c for cams, _, _ in jobs for c in cams],
+        [f for _, frames, _ in jobs for f in frames], h, w,
+        params=[p for _, _, ps in jobs for p in ps]) if jobs else []
     units = []
-    for cams, _ in jobs:
+    for cams, _, _ in jobs:
         units.append(traces[:len(cams)])
         traces = traces[len(cams):]
     results, control_results = [], []

@@ -1,5 +1,6 @@
-"""One fixed pose (the port's ``app/bench.py`` config 2 pose for
-menger: position (36, 34, -5), direction (-16, -14, 25))."""
+"""One fixed pose, given in the workload: the port's ``app/bench.py``
+config 2 pose for menger (position (36, 34, -5), direction
+(-16, -14, 25)), or config 5's ``camera_paths.static`` pose for castle."""
 
 import numpy as np
 

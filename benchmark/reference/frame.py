@@ -15,7 +15,8 @@ change that halves the planes' bytes would take.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+import dataclasses
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -48,33 +49,53 @@ def camera_rows(position, direction, width: int, height: int) -> np.ndarray:
                       width, height)
 
 
+def _call_key(p: RenderParams) -> RenderParams:
+    """What frames of one trace call share: their parameters but the
+    sun's yaw and pitch, which the call takes ray by ray."""
+    return dataclasses.replace(p, sun_yaw=0.0, sun_pitch=0.0)
+
+
 def trace_batch(tables, noise, cams: Sequence[np.ndarray],
                 frames: Sequence[int], height: int, width: int,
-                chunk: int = 1 << 26):
-    """The trace of whole frames, each with its camera rows and frame
-    number, as many frames a call as ``chunk`` rays hold (at least one):
-    a list of planar outputs, each with its own ``rays`` and ``steps``
-    (6,).  A call lasts as many loop iterations as its slowest ray takes
-    steps (up to 2048 at a grazing ray), whatever the number of rays, so
-    the frames go in as few calls as memory allows."""
+                chunk: int = 1 << 26,
+                params: Optional[Sequence[RenderParams]] = None):
+    """The trace of whole frames, each with its camera rows, frame
+    number and ``RenderParams`` (``params``; ``RP`` for every frame by
+    default), each frame's trace row packed from its own, as many
+    frames a call as ``chunk`` rays hold (at least one) and as follow
+    each other with parameters that differ in the sun alone: a list of
+    planar outputs, each with its own ``rays`` and ``steps`` (6,).  A
+    call lasts as many loop iterations as its slowest ray takes steps (up
+    to 2048 at a grazing ray), whatever the number of rays, so the frames
+    go in as few calls as memory allows, each ray with its frame's camera
+    and, where the call's frames differ in it, its frame's sun."""
     dev = tables.device
     ys, xs = torch.meshgrid(torch.arange(height, device=dev),
                             torch.arange(width, device=dev), indexing="ij")
     n = height * width
     ys, xs = ys.reshape(n), xs.reshape(n)
     k = len(cams)
+    params = [RP] * k if params is None else list(params)
+    rows = [pack_trace_params(c, p) for c, p in zip(cams, params)]
     per = max(1, chunk // n)
-    params = pack_trace_params(cams[0], RP)
     outs = []
-    for s in range(0, k, per):
-        idx = range(s, min(k, s + per))
+    s = 0
+    while s < k:
+        e = s + 1
+        while e < min(k, s + per) and \
+                _call_key(params[e]) == _call_key(params[s]):
+            e += 1
+        idx = range(s, e)
         m = len(idx)
         cam_t = torch.from_numpy(np.stack(
             [np.asarray(cams[i], np.float32).reshape(12) for i in idx])).to(dev)
+        sun = np.stack([rows[i][24:30] for i in idx])
+        sun_t = None if (sun == sun[0]).all() else torch.from_numpy(
+            sun).to(dev).repeat_interleave(n, dim=0)
         frame_t = torch.tensor([int(frames[i]) for i in idx], device=dev)
-        g = trace_rays(tables, params, noise, frame_t.repeat_interleave(n),
+        g = trace_rays(tables, rows[s], noise, frame_t.repeat_interleave(n),
                        ys.repeat(m), xs.repeat(m),
-                       cams=cam_t.repeat_interleave(n, dim=0))
+                       cams=cam_t.repeat_interleave(n, dim=0), suns=sun_t)
         for j in range(m):
             sl = slice(j * n, (j + 1) * n)
             o = {key: g[key][..., sl] for key in
@@ -87,20 +108,24 @@ def trace_batch(tables, noise, cams: Sequence[np.ndarray],
             o["steps"] = g["ray_steps"][:, sl].sum(1, dtype=torch.int64)
             outs.append(o)
         del g
+        s = e
     return outs
 
 
 def render_frames(tables, noise, state: Dict, cams: Sequence[np.ndarray],
                   frames: Sequence[int], radius: int, lowp: bool = False,
-                  traces=None):
+                  traces=None,
+                  params: Optional[Sequence[RenderParams]] = None):
     """Consecutive frames from ``state`` (the three planes, ``old_cam``,
     ``history_valid``), frame i at camera rows ``cams[i]`` with frame
-    number ``frames[i]``; ``traces``: their :func:`trace_batch` outputs,
+    number ``frames[i]`` and parameters ``params[i]`` (``RP`` for every
+    frame by default); ``traces``: their :func:`trace_batch` outputs,
     where already traced.  Returns ``(images, states)``: each frame's
     (H, W, 3) u8 image and the state after it."""
     height, width = state["old_depth"].shape
     if traces is None:
-        traces = trace_batch(tables, noise, cams, frames, height, width)
+        traces = trace_batch(tables, noise, cams, frames, height, width,
+                             params=params)
     images, states = [], []
     for cam, g in zip(cams, traces):
         cam = np.asarray(cam, np.float32)

@@ -325,6 +325,7 @@ def trace_rays(
     ys: torch.Tensor,  # (n,) int64 image row of each ray
     xs: torch.Tensor,  # (n,) int64 image column of each ray
     cams: Optional[torch.Tensor] = None,  # (n, 12) f32 camera of each ray
+    suns: Optional[torch.Tensor] = None,  # (n, 6) f32 sun of each ray
 ) -> Dict[str, torch.Tensor]:
     """One path-traced sample for each listed pixel: ``color``,
     ``normal``, ``albedo`` (3, n), ``depth`` (n,), ``node`` (n,) int32,
@@ -333,7 +334,9 @@ def trace_rays(
     ``ray_steps`` (6, n) int32.  ``cams``:
     each ray's camera rows (origin, right, up, forward), in place of
     those in ``params``, so that one call traces frames of a moving
-    camera."""
+    camera; ``suns``: each ray's sun direction, raw and normalised (the
+    slots 24-29 of ``params``), in place of those in ``params``, so that
+    one call traces frames of a moving sun."""
     P = [float(v) for v in np.asarray(params, np.float32)]
     dev = tables.device
     f32 = torch.float32
@@ -362,8 +365,9 @@ def trace_rays(
     sun_col = [as_f32(np.float32(P[18 + i]) * np.float32(sun_strength))
                for i in range(3)]
     sky = P[21:24]
-    sdx, sdy, sdz = P[24:27]
-    nsx, nsy, nsz = P[27:30]
+    S = P[24:30] if suns is None else [suns[:, i] for i in range(6)]
+    sdx, sdy, sdz = S[0:3]
+    nsx, nsy, nsz = S[3:6]
     sun_on = sun_strength > 0.0
     glow_div = as_f32(max(np.float32(sun_size) * np.float32(sun_size),
                         np.float32(1e-12)))

@@ -13,7 +13,7 @@ import pytest  # noqa: E402
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CELLS = ("menger720-r0.view", "monu9-1080-r2.view", "menger720-r0.burst",
-         "monu9-1080-r2.export")
+         "monu9-1080-r2.export", "castle4k-r0.sun")
 
 
 def shrink(root_out):

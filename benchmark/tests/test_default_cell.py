@@ -55,8 +55,9 @@ def test_control_fails_the_default_cells_limits():
         tables = ref_tables.Tables(ref_tables.load_grid("default"), "cpu")
         assert not tables.brick_dedup
         noise = torch.from_numpy(ref_noise.blue_noise_buffer())
-        cams, frames = check.frame_jobs(snap, W, H)
-        traces = ref_frame.trace_batch(tables, noise, cams, frames, H, W)
+        cams, frames, params = check.frame_jobs(snap, W, H)
+        traces = ref_frame.trace_batch(tables, noise, cams, frames, H, W,
+                                       params=params)
         got = check.compare_frames(tables, noise, snap, radius, traces,
                                    lowp=True)
         sound = check.compare_frames(tables, noise, snap, radius, traces)

@@ -194,8 +194,9 @@ def test_control_fails_the_limits(cell, noise):
     r.render(Camera(position=poses[0][0], direction=poses[0][1]))
     snap = _Snap(dict(r.state), poses[1:3], 2, poses[0])
     tables = ref_tables.Tables(ref_tables.load_grid(scene), "cpu")
-    cams, frames = check.frame_jobs(snap, W, H)
-    traces = ref_frame.trace_batch(tables, noise, cams, frames, H, W)
+    cams, frames, params = check.frame_jobs(snap, W, H)
+    traces = ref_frame.trace_batch(tables, noise, cams, frames, H, W,
+                                   params=params)
     got = check.compare_frames(tables, noise, snap, radius, traces,
                                lowp=True)
     limits = wl["check"]["limits"]
@@ -203,8 +204,10 @@ def test_control_fails_the_limits(cell, noise):
 
 
 class _Snap:
-    def __init__(self, state_before, cams, first_frame, prev_pose):
+    def __init__(self, state_before, cams, first_frame, prev_pose,
+                 suns=None):
         self.state_before = state_before
         self.cams = cams
+        self.suns = suns
         self.first_frame = first_frame
         self.prev_pose = prev_pose
