@@ -45,9 +45,14 @@ class FakeLibrary:
 
     def __init__(self):
         self.calls = []
+        self.asked = []  # each occupancy query's arguments
 
     def vt_frame_slots(self):
         return len(direct.SLOTS)
+
+    def vt_denoise_resident_warps(self, instance, row, shared):
+        self.asked.append((instance, row, shared))
+        return resident(shared)
 
     def vt_frame_launch(self, plan, arena, old_color, old_blend, old_depth,
                         reproject, keep_linear, stream):
@@ -69,11 +74,18 @@ class FakeLibrary:
         return 0
 
 
+def resident(shared: int) -> int:
+    """The stand-in's resident warps: fewer blocks of 8 warps for a
+    larger tile, as on the card."""
+    return 8 * min(8, 228 * 1024 // (shared + 1024))
+
+
 @pytest.fixture
 def fake(monkeypatch):
     """The direct path on CPU tensors, by the stand-in library."""
     lib = FakeLibrary()
     monkeypatch.setattr(_build, "load", lambda: lib)
+    monkeypatch.setattr(denoise_op, "_RESIDENT", {})
     monkeypatch.setattr(direct, "engages", lambda device: True)
     monkeypatch.setattr(direct, "_stream", lambda index: 0)
     return lib
@@ -112,13 +124,14 @@ def _recording_stages(log):
                 still_epilogue=still, encode=encode)
 
 
-@pytest.mark.parametrize("radius", [0, 2])
+@pytest.mark.parametrize("radius", [0, 2, 8])
 def test_plan_launches_frame_stages_by_the_same_rows(fake, radius):
     """First frame, still, reprojecting and still again: the native
     call's flag gives the kernels ``frame_stages`` runs with recording
     stages, in order, and the plan's row holds each stage's slice, bit
     for bit; the wrappers' launches and ``frames.direct`` grow by
-    them."""
+    them, and ``denoise.resident_warps`` by the plan's warps a denoise
+    launch."""
     log = []
     stages = _recording_stages(log)
     eager = _renderer(radius)
@@ -138,6 +151,8 @@ def test_plan_launches_frame_stages_by_the_same_rows(fake, radius):
         want = collections.Counter(entry[0] for entry in log)
         assert {k.split(".")[1]: n for k, n in grown.items()
                 if k.startswith("launches.") and n} == dict(want)
+        assert grown["denoise.resident_warps"] == want["denoise"] * (
+            fast._plan.dn_warps)
         row = call["row"]
         for name, got, *rest in log:
             if name == "trace":
@@ -178,7 +193,7 @@ def test_pack_is_pack_frame_rows():
         state = {"old_cam": cam, "history_valid": rng.random() < 0.9}
 
 
-@pytest.mark.parametrize("radius", [0, 2])
+@pytest.mark.parametrize("radius", [0, 2, 8])
 @pytest.mark.parametrize("lean", [True, False])
 def test_outputs_and_state_are_new_views_laid_out_as_the_eager_ones(
         fake, radius, lean):
@@ -310,6 +325,45 @@ def test_the_plan_refuses_what_the_wrappers_refuse(fake):
         r.render(POSE_A)
 
 
+def test_resident_warps_are_asked_once_a_plan(fake):
+    """The occupancy query's wrapper asks the library once for each
+    (instance, row, shared bytes) and remembers the answer; a frame
+    plan asks when it is built, for the by-value entry, and never
+    again per frame; each frame's denoise launch adds the plan's warps
+    to ``denoise.resident_warps``, once for each ``launches.denoise``
+    it adds."""
+    r8 = denoise_op.tile_plan(1080, 1920, 8)
+    assert (r8.instance, r8.shared_bytes) == (8, 73_728)
+    r2 = denoise_op.tile_plan(1080, 1920, 2)
+    for _ in range(3):
+        assert denoise_op.resident_warps(8, False, 73_728) == resident(73_728)
+        assert denoise_op.resident_warps(8, True, 73_728) == resident(73_728)
+        assert denoise_op.resident_warps(2, False, r2.shared_bytes) == 40
+    assert fake.asked == [(8, 0, 73_728), (8, 1, 73_728),
+                          (2, 0, r2.shared_bytes)]
+    assert resident(73_728) == 24
+
+    fake.asked.clear()
+    r = _renderer(8)  # 12x16 at r = 8: one tile, r8's shared bytes
+    before = counters()
+    for pose in POSES * 3:
+        r.render(pose)
+    grown = {k: v - before[k] for k, v in counters().items()}
+    assert fake.asked == []  # the plan's key was asked above
+    assert r._plan.dn_warps == 24
+    assert grown["launches.denoise"] == len(POSES) * 3
+    assert grown["denoise.resident_warps"] == 24 * grown["launches.denoise"]
+
+    r0 = _renderer(0)
+    before = counters()
+    r0.render(POSE_A)
+    grown = {k: v - before[k] for k, v in counters().items()}
+    assert grown["denoise.resident_warps"] == grown["launches.denoise"] == 0
+    r.resize(40, 70)  # a new plan with r8's tile: nothing asked
+    r.render(POSE_A)
+    assert fake.asked == []
+
+
 def test_frame_cu_reads_the_plan_and_stages_in_this_order():
     """``csrc/frame.cu``'s ``Slot`` enum is ``direct.SLOTS``, and its
     frame calls the kernels' entries in ``direct.frame_launches`` order
@@ -324,7 +378,7 @@ def test_frame_cu_reads_the_plan_and_stages_in_this_order():
     assert calls == ["trace", "still_epilogue", "temporal", "denoise",
                      "encode"]
     for reproject in (False, True):
-        for radius in (0, 2):
+        for radius in (0, 2, 8):
             want = direct.frame_launches(reproject, radius)
             assert [c for c in calls if c in want] == list(want)
 
@@ -338,7 +392,8 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("scene, width, height, radius", [
-    ("menger", 1280, 720, 0), ("monu9", 1920, 1080, 2)])
+    ("menger", 1280, 720, 0), ("monu9", 1920, 1080, 2),
+    ("monu9", 1920, 1080, 8)])
 def test_direct_and_eager_frames_are_bit_equal_on_the_card(
         cuda, scene, width, height, radius):
     """A seeded 64-frame orbit with holds and moves: every output and
@@ -357,3 +412,36 @@ def test_direct_and_eager_frames_are_bit_equal_on_the_card(
 
     assert launches(fast) == launches(eager)
     assert fast["launches.trace"] == 64
+
+
+@pytest.mark.cuda
+def test_resident_warps_on_the_card(cuda):
+    """The occupancy query on the card: whole blocks of 8 warps, no more
+    than an SM's 64; r = 8's 73,728-byte tile leaves room for 3 blocks
+    at most, and r = 2's 41,472 bytes for at least as many; an eager
+    launch adds its plan's warps to ``denoise.resident_warps``."""
+    warps = {}
+    for radius in (1, 2, 4, 8, 12, 30):
+        plan = denoise_op.tile_plan(1080, 1920, radius)
+        for row in (False, True):
+            n = denoise_op.resident_warps(plan.instance, row,
+                                          plan.shared_bytes)
+            assert 0 < n <= 64 and n % 8 == 0, (radius, row, n)
+            warps[radius, row] = n
+    assert warps[8, False] <= 24 and warps[8, True] <= 24
+    assert warps[2, False] >= warps[8, False]
+    planes = [torch.rand((3, 37, 19), device=cuda),
+              torch.rand((3, 37, 19), device=cuda),
+              torch.rand((37, 19), device=cuda) + 1,
+              torch.rand((3, 37, 19), device=cuda),
+              torch.zeros((37, 19), dtype=torch.int32, device=cuda)]
+    dp = params.pack_denoise_params(POSE_A.rows(19, 37),
+                                    params.DenoiseParams())
+    before = counters()
+    denoise_op.denoise_cuda(*planes, dp, 8)
+    torch.cuda.synchronize()
+    grown = {k: v - before[k] for k, v in counters().items()}
+    plan = denoise_op.tile_plan(37, 19, 8)
+    assert grown["launches.denoise"] == 1
+    assert grown["denoise.resident_warps"] == denoise_op.resident_warps(
+        plan.instance, False, plan.shared_bytes) == warps[8, False]

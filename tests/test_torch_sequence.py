@@ -7,6 +7,8 @@ JAX package's ``pack_kernel_rows``.  The CUDA-graph replay of the same
 path is held against the loop in ``tests/test_torch_cuda.py``.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +23,7 @@ from voxtracer_torch.engine.pipeline import STATE_PLANES, Renderer
 from voxtracer_torch.ops import denoise, epilogue, temporal
 from voxtracer_torch.ops import trace as trace_op
 from voxtracer_torch.scene import GridScene, VoxelList, default_scene
+from voxtracer_torch.utils.timing import COUNTS
 
 STILL = dict(position=np.array([0.3, 0.2, -2.0]))
 
@@ -160,6 +163,29 @@ def test_burst_after_a_moving_sequence_equals_renders(n):
     assert a.still_sample == n + 1
 
 
+def _host(p):  # the plain trace and temporal blend read numpy rows
+    return p.row.numpy()
+
+
+def _trace_stage(tables, p, noise, frame, h, w):
+    row = _host(p)
+    return trace_op.render_sample_plain(
+        tables, row[P.ROW_TRACE:P.ROW_FRAME], noise,
+        int(row[P.ROW_FRAME:P.ROW_FRAME + 1].view(np.int32)[0]), h, w)
+
+
+def _temporal_stage(*args):
+    row = _host(args[-1])
+    return temporal.temporal_blend_reproject(
+        *args[:-1], row[P.ROW_TEMPORAL:P.ROW_DENOISE])
+
+
+def _denoise_stage(colors, normal, depth, albedo, node, p, r):
+    row = _host(p)
+    return denoise.denoise(colors, normal, depth, albedo, node,
+                           row[P.ROW_DENOISE:P.ROW_KEEP_SAMPLE], r)
+
+
 @pytest.mark.parametrize("radius", [0, 1])
 def test_sequence_runner_blends_still_frames_into_its_state(radius):
     """The card's sequence path (``SequenceRunner``), run eagerly on CPU
@@ -174,32 +200,13 @@ def test_sequence_runner_blends_still_frames_into_its_state(radius):
     rows, flags, _, _ = seq._pack_sequence(cams)
     assert flags == [False] * 3 + [True] * 2 + [False] * 2 + [True, False]
 
-    def host(p):  # the plain trace and temporal blend read numpy rows
-        return p.row.numpy()
-
-    def trace_stage(tables, p, noise, frame, h, w):
-        row = host(p)
-        return trace_op.render_sample_plain(
-            tables, row[P.ROW_TRACE:P.ROW_FRAME], noise,
-            int(row[P.ROW_FRAME:P.ROW_FRAME + 1].view(np.int32)[0]), h, w)
-
-    def temporal_stage(*args):
-        row = host(args[-1])
-        return temporal.temporal_blend_reproject(
-            *args[:-1], row[P.ROW_TEMPORAL:P.ROW_DENOISE])
-
-    def denoise_stage(colors, normal, depth, albedo, node, p, r):
-        row = host(p)
-        return denoise.denoise(colors, normal, depth, albedo, node,
-                               row[P.ROW_DENOISE:P.ROW_KEEP_SAMPLE], r)
-
     asked = []
 
     def still_stage(*args, in_place=False):
         asked.append(in_place)
         return epilogue.still_epilogue_plain(*args, in_place=in_place)
 
-    stages = (trace_stage, temporal_stage, denoise_stage, still_stage,
+    stages = (_trace_stage, _temporal_stage, _denoise_stage, still_stage,
               epilogue.encode_plain)
     runner = pipeline.SequenceRunner(None, seq.tables, seq.noise, 16, 16,
                                      radius, stages)
@@ -213,6 +220,49 @@ def test_sequence_runner_blends_still_frames_into_its_state(radius):
     assert torch.equal(runner.frames, torch.stack(want))
     for k in STATE_PLANES:
         assert torch.equal(runner.state[k], loop.state[k]), k
+
+
+def test_a_replay_adds_the_denoise_warps_its_capture_counted(monkeypatch):
+    """The card's sequence path on CPU tensors, through stand-ins for
+    CUDA graphs (a capture runs the frame, a replay nothing) and a
+    denoise stage that counts as its wrapper does: a capture leaves the
+    counts as its eager frame left them, and each replay adds to
+    ``denoise.resident_warps`` what its frame's denoise launch added,
+    once for each ``launches.denoise`` it adds."""
+    class Graph:
+        def replay(self):
+            pass
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+    monkeypatch.setattr(torch.cuda, "graph",
+                        lambda graph, pool=None: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
+
+    def denoise_stage(*args):
+        denoise.denoise_cuda.launches += 1
+        COUNTS["denoise.resident_warps"] += 24
+        return _denoise_stage(*args)
+
+    seq, _ = _pair(_tiny_scene(), denoise_radius=2)
+    cams = _segments()
+    rows, flags, _, _ = seq._pack_sequence(cams)
+    runner = pipeline.SequenceRunner(
+        None, seq.tables, seq.noise, 16, 16, 2,
+        (_trace_stage, _temporal_stage, denoise_stage,
+         epilogue.still_epilogue_plain, epilogue.encode_plain))
+    runner.load_rows(rows, len(rows))
+    for reproject in (False, True):
+        before = pipeline.counters()
+        runner.capture(reproject)
+        grown = {k: v - before[k] for k, v in pipeline.counters().items()}
+        assert grown["launches.denoise"] == 1  # the eager frame's
+        assert grown["denoise.resident_warps"] == 24
+    runner.load_state(seq.state, True)
+    before = pipeline.counters()
+    runner.run(Renderer._segments(flags), graph=True)
+    grown = {k: v - before[k] for k, v in pipeline.counters().items()}
+    assert grown["graph.replays"] == grown["launches.denoise"] == len(cams)
+    assert grown["denoise.resident_warps"] == 24 * len(cams)
 
 
 def test_sequence_after_realtime_frames_continues_accumulation():

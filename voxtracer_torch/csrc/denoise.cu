@@ -103,6 +103,9 @@ constexpr int GLOBAL = -1;  // the instance for radii beyond MAX_RADIUS
 constexpr int N_CAMERA = 12;  // the camera rows, slots 0-11 of the vector
 
 constexpr int table_radius(int R) { return R > 0 ? R : MAX_RADIUS; }
+// the tiled template instances, each through CASE(R)
+#define VT_DENOISE_TILED(CASE) \
+    CASE(0) CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
 
 constexpr int tile_bytes(int r) {
     return PLANES * 4 * (TILE_X + 2 * r) * (TILE_Y + 2 * r);
@@ -392,15 +395,21 @@ struct Planes {
     float* out;
 };
 
+// Above 48 KB a block's dynamic shared memory needs the attribute; set
+// once per instance, for its largest tile.
+template <int R, bool ROW>
+cudaError_t allow_tile() {
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        denoise_kernel<R, ROW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        tile_bytes(table_radius(R)));
+    return attr;
+}
+
 template <int R, bool ROW>
 cudaError_t launch(const float* params_host, const float* fdist_host,
                    const Planes& g, int height, int width, int row0,
                    int radius, dim3 grid, int shared, cudaStream_t stream) {
-    // above 48 KB a block's dynamic shared memory needs the attribute;
-    // set once per instance, for its largest tile
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        denoise_kernel<R, ROW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        tile_bytes(table_radius(R)));
+    const cudaError_t attr = allow_tile<R, ROW>();
     if (attr != cudaSuccess) return attr;
     Params<R> P;
     memcpy(P.p, params_host, sizeof(P.p));
@@ -436,22 +445,55 @@ cudaError_t launch_instance(int instance, const float* params_host,
     case R:                                                                  \
         return launch<R, ROW>(params_host, fdist_host, g, height, width,     \
                               row0, radius, grid, shared, stream);
-        VT_DENOISE_CASE(0)
-        VT_DENOISE_CASE(1)
-        VT_DENOISE_CASE(2)
-        VT_DENOISE_CASE(3)
-        VT_DENOISE_CASE(4)
-        VT_DENOISE_CASE(5)
-        VT_DENOISE_CASE(6)
-        VT_DENOISE_CASE(7)
-        VT_DENOISE_CASE(8)
+        VT_DENOISE_TILED(VT_DENOISE_CASE)
 #undef VT_DENOISE_CASE
         default:
             return cudaErrorInvalidConfiguration;
     }
 }
 
+// The warps a launch of `kernel` at `shared` dynamic bytes keeps resident
+// on one SM, or minus the CUDA error of the query.
+template <typename Kernel>
+int resident_warps(Kernel kernel, int shared) {
+    int blocks = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, kernel, BLOCK_X * BLOCK_Y, shared);
+    if (err != cudaSuccess) return -static_cast<int>(err);
+    return blocks * (BLOCK_X * BLOCK_Y / 32);
+}
+
+template <bool ROW>
+int instance_resident_warps(int instance, int shared) {
+    switch (instance) {
+        case GLOBAL:
+            return resident_warps(denoise_global_kernel<ROW>, shared);
+#define VT_DENOISE_CASE(R)                                                   \
+    case R: {                                                                \
+        const cudaError_t attr = allow_tile<R, ROW>();                       \
+        if (attr != cudaSuccess) return -static_cast<int>(attr);             \
+        return resident_warps(denoise_kernel<R, ROW>, shared);               \
+    }
+        VT_DENOISE_TILED(VT_DENOISE_CASE)
+#undef VT_DENOISE_CASE
+        default:
+            return -static_cast<int>(cudaErrorInvalidConfiguration);
+    }
+}
+
 }  // namespace
+
+// The warps that a launch of `instance` (ROW: `row` 0 or 1) at `shared`
+// dynamic bytes, as ops/denoise.py `tile_plan` plans it, keeps resident on
+// one SM of the current device: cudaOccupancyMaxActiveBlocksPerMultiprocessor
+// after the attribute the launch sets.  Minus the CUDA error where the
+// query fails or the instance is not one of this build's.
+extern "C" int vt_denoise_resident_warps(int instance, int row, int shared) {
+    if ((row != 0 && row != 1) || shared < 0)
+        return -static_cast<int>(cudaErrorInvalidValue);
+    return row ? instance_resident_warps<true>(instance, shared)
+               : instance_resident_warps<false>(instance, shared);
+}
 
 // The plan (instance, block, rows per thread, grid, shared bytes) is
 // ops/denoise.py `tile_plan`'s; a plan that disagrees with this build's

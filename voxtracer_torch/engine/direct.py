@@ -19,7 +19,9 @@ never written by the next.
 It engages (:func:`engages`) on a CUDA device; the CPU, the mesh and the
 sequence and burst paths run the stages one by one.  A frame plan adds
 to the wrappers' ``launches`` the kernels it enqueued
-(:func:`frame_launches`), and to ``COUNTS["frames.direct"]`` the frame.
+(:func:`frame_launches`), to ``COUNTS["denoise.resident_warps"]`` its
+denoise launch's resident warps (asked once, when the plan is built),
+and to ``COUNTS["frames.direct"]`` the frame.
 """
 
 from __future__ import annotations
@@ -128,6 +130,13 @@ class FramePlan:
         self.fdist = (denoise_op.factor_dist_table(radius, sigma_distance)
                       if dn and dn.instance != denoise_op.GLOBAL_INSTANCE
                       else np.zeros(1, np.float32))
+        # what each frame's denoise launch adds to its counter (the native
+        # call passes no device row: the by-value entry)
+        self.dn_warps = 0
+        if dn:
+            with torch.cuda.device(self.index):
+                self.dn_warps = denoise_op.resident_warps(
+                    dn.instance, False, dn.shared_bytes)
         self._layout(height, width)
         slots = {
             "row": self.row.ctypes.data,
@@ -232,6 +241,7 @@ class FramePlan:
             raise RuntimeError(f"frame launch failed: cudaError {err}")
         for kernel in self.counted[reproject]:
             kernel.launches += 1
+        COUNTS["denoise.resident_warps"] += self.dn_warps
         COUNTS["frames.direct"] += 1
         return self._outputs(arena, base, cam, keep)
 

@@ -281,6 +281,11 @@ def frame_outputs(cam: np.ndarray, gbuf, blended, next_blend, linear, image,
     return state, outputs
 
 
+# the count that grows with the denoise's launches (``ops/denoise.py``):
+# a replayed graph adds what it counted while it was captured, as launches
+WARPS = "denoise.resident_warps"
+
+
 def counted_kernels() -> Dict[str, Callable]:
     """The frame kernels' wrappers by stage: a replayed graph adds what
     they counted while it was captured.  Looked up at each call: a
@@ -346,7 +351,9 @@ class SequenceRunner:
         self.frames = torch.zeros((0, height, width, 3), dtype=torch.uint8,
                                   device=dev)
         self.host_row = None
-        self.graphs: Dict[bool, Tuple[torch.cuda.CUDAGraph, List[int]]] = {}
+        # kind of frame -> (graph, launches a replay, resident warps a replay)
+        self.graphs: Dict[bool, Tuple[torch.cuda.CUDAGraph, List[int],
+                                      int]] = {}
         self.pool = None
 
     def load_rows(self, rows: np.ndarray, n_frames: int):
@@ -398,8 +405,9 @@ class SequenceRunner:
         eager frame first (it builds the kernels and sets their
         attributes; it also overwrites state and cursor, so captures
         come before :meth:`load_state`), then the capture, which
-        launches nothing: the launches the wrappers counted during it
-        become the graph's count per replay."""
+        launches nothing: the launches the wrappers counted during it,
+        and the resident warps of its denoise launch, become the graph's
+        counts per replay."""
         if reproject in self.graphs:
             return
         with span("vt.sequence.capture"):
@@ -412,15 +420,18 @@ class SequenceRunner:
                 self.pool = torch.cuda.graph_pool_handle()
             kernels = counted_kernels().values()
             before = [k.launches for k in kernels]
+            warps = COUNTS[WARPS]
             graph = torch.cuda.CUDAGraph()
             try:
                 with torch.cuda.graph(graph, pool=self.pool):
                     self.frame(reproject)
                 per_replay = [k.launches - n for k, n in zip(kernels, before)]
+                warps_per_replay = COUNTS[WARPS] - warps
             finally:  # a capture that raised launched nothing either
                 for kernel, n in zip(kernels, before):
                     kernel.launches = n
-            self.graphs[reproject] = (graph, per_replay)
+                COUNTS[WARPS] = warps
+            self.graphs[reproject] = (graph, per_replay, warps_per_replay)
             COUNTS["graph.captures"] += 1
 
     def run(self, segments, graph: bool):
@@ -430,12 +441,13 @@ class SequenceRunner:
                 for _ in range(start, end):
                     self.frame(reproject)
                 continue
-            captured, per_replay = self.graphs[reproject]
+            captured, per_replay, warps = self.graphs[reproject]
             for _ in range(start, end):
                 captured.replay()
             COUNTS["graph.replays"] += end - start
             for kernel, n in zip(counted_kernels().values(), per_replay):
                 kernel.launches += n * (end - start)
+            COUNTS[WARPS] += warps * (end - start)
 
 
 @dataclasses.dataclass

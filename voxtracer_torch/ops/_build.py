@@ -173,6 +173,10 @@ def load() -> ctypes.CDLL:
     #   rows, grid_x, grid_y, shared, out, stream) -> cudaError_t
     lib.vt_denoise_launch.argtypes = [p] * 8 + [i] * 11 + [p] * 2
     lib.vt_denoise_launch.restype = ctypes.c_int
+    # vt_denoise_resident_warps(instance, row, shared) -> warps an SM, or
+    #   minus the cudaError
+    lib.vt_denoise_resident_warps.argtypes = [i] * 3
+    lib.vt_denoise_resident_warps.restype = ctypes.c_int
     # vt_resample_launch(hist, px_f, py_f, channels, height, width,
     #   sampled, ok, stream) -> cudaError_t
     lib.vt_resample_launch.argtypes = [p] * 3 + [i] * 3 + [p] * 3

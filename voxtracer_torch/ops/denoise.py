@@ -15,7 +15,9 @@ radius r >= 1 a (2r+1)^2 cross-bilateral stencil runs first:
 * :func:`denoise_cuda` — the hand-written kernel ``csrc/denoise.cu``,
   which replaces the Pallas kernel ``denoise_pallas._make_kernel``; its
   launch geometry is :func:`tile_plan`'s and its ``factor_dist`` values
-  :func:`factor_dist_table`'s.
+  :func:`factor_dist_table`'s; each launch adds the warps its plan
+  keeps resident on an SM (:func:`resident_warps`) to
+  ``COUNTS["denoise.resident_warps"]``.
 * :func:`denoise` — radius 0, or one of the two by the tensors' device.
 
 All read the (16,) vector of ``engine.params.pack_denoise_params``; the
@@ -24,7 +26,7 @@ kernel's wrapper and the dispatcher also take a ``DeviceRow``.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -37,6 +39,7 @@ from ..engine.params import (
     DeviceRow,
     check_params,
 )
+from ..utils.timing import COUNTS
 from .trace import _div, _max0, _norm_div3, pixel_rows
 
 
@@ -202,6 +205,32 @@ def tile_plan(height: int, width: int, radius: int) -> TilePlan:
     )
 
 
+# (library, instance, row, shared bytes) -> warps: asked once a plan
+_RESIDENT: Dict[tuple, int] = {}
+
+
+def resident_warps(instance: int, row: bool, shared_bytes: int) -> int:
+    """The warps that a launch of :func:`tile_plan`'s ``instance`` (its
+    row-reading entry where ``row``) at ``shared_bytes`` of dynamic shared
+    memory keeps resident on one SM of the current device
+    (``vt_denoise_resident_warps``: the occupancy query after the
+    attribute the launch sets).  Asked of the loaded library once for
+    each (instance, row, shared bytes), then remembered.  Raises where
+    the query fails."""
+    from . import _build
+
+    lib = _build.load()
+    key = (lib, int(instance), bool(row), int(shared_bytes))
+    warps = _RESIDENT.get(key)
+    if warps is None:
+        warps = lib.vt_denoise_resident_warps(key[1], int(key[2]), key[3])
+        if warps < 0:
+            raise RuntimeError(
+                f"denoise occupancy query failed: cudaError {-warps}")
+        _RESIDENT[key] = warps
+    return warps
+
+
 def factor_dist_table(radius: int, sigma_distance: float) -> np.ndarray:
     """(2r+1)^2 float32 ``factor_dist`` values, dy outer, dx inner: the
     plain version's per-tap ``float32(dx^2 + dy^2) / float32(sigma_d2)``."""
@@ -256,6 +285,8 @@ def denoise_cuda(
              if plan.instance != GLOBAL_INSTANCE else np.zeros(1, np.float32))
     out = torch.empty_like(colors)
     with torch.cuda.device(depth.device):
+        warps = resident_warps(plan.instance, row is not None,
+                               plan.shared_bytes)
         stream = torch.cuda.current_stream(depth.device).cuda_stream
         err = launch(
             params.ctypes.data,
@@ -277,6 +308,7 @@ def denoise_cuda(
     if err != 0:
         raise RuntimeError(f"denoise kernel launch failed: cudaError {err}")
     denoise_cuda.launches += 1
+    COUNTS["denoise.resident_warps"] += warps
     return out
 
 

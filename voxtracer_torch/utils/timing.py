@@ -24,8 +24,9 @@ The port adds two instruments of its own layers:
   the CUDA graphs captured and replayed, the kernel library's loads,
   the places the host blocked on the device, the frames enqueued by
   the frame driver's one native call, the lookahead fetch's host copies
-  and those of them on its own copy stream, and the scene builds with
-  their host microseconds and table bytes.  ``engine.pipeline.counters``
+  and those of them on its own copy stream, the warps each denoise
+  launch keeps resident on an SM, and the scene builds with their host
+  microseconds and table bytes.  ``engine.pipeline.counters``
   snapshots them with the frame kernels' launches.
 """
 
@@ -49,6 +50,9 @@ COUNTS: Dict[str, int] = {
     # ``utils/fetch.py`` ``LookaheadFetch.push`` of a frame on a card:
     "fetch.copies": 0,  # a host copy started
     "fetch.stream_copies": 0,  # one enqueued on the fetch's copy stream
+    # a denoise launch counted in ``launches.denoise``: the warps its plan
+    # keeps resident on one SM (``ops/denoise.py`` ``resident_warps``)
+    "denoise.resident_warps": 0,
     # ``engine/scene.py``: the scene build (set-up only)
     "scene.builds": 0,  # a ``SceneTables``
     "scene.device_builds": 0,  # one whose tables were built on a CUDA device
