@@ -10,9 +10,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
 1. build: compiles voxtracer_torch/csrc/*.cu with nvcc (sm_90a); the
    trace kernel's registers, spills, shared bytes and resident warps
    per SM; ptxas's registers, spills and static shared bytes of each
-   denoise instance (r = 1-8, and 0: the radius at run time) and the
-   dynamic shared bytes of its tile at r in {1, 2, 4, 8}; the same of
-   the stall kernel's three instances (static, ser, ind): no spills.
+   denoise instance (r = 1-8, and 0: the radius at run time; the range
+   quotient's 1 and 2 corrections): no spills, at most 80 registers from
+   r = 2 on; and the dynamic shared bytes of its tile at r in {1, 2, 4,
+   8}; the same of the stall kernel's three instances (static, ser,
+   ind): no spills.
 2. golden: the trace kernel against tests/golden/oracle_8x8x8_32.npz
    (the numpy oracle's pinned output) at the parity bar.
 3. plain: the trace kernel against its plain torch version, both on the
@@ -37,9 +39,17 @@ Phases (each prints one line; any failure raises and exits non-zero):
    per radius, and on a ragged 333x187 crop of it at r in {1, ..., 8,
    12} and, through the instance for radii whose tile does not fit
    shared memory, {27, 32}: values beyond the bar and values that differ
-   at all.  Then the kernel alone (``voxtracer_torch.app.denoisebench``) at 1920x1080 and
-   3840x2160, r in {1, 2, 4, 8}, on random and on uniform planes: time,
-   bound and share (the cost curve).
+   at all (none), at the default sigma_range 1.5 and at 0.3 and 2.75,
+   whose range quotients take one and two corrections.  The range
+   quotient (``ops/denoise.py`` ``quotient_check``) against IEEE division
+   over all 2^31 non-negative float32 dividends (inf and the NaNs among
+   them), at 1.5, 0.3, 2.75 and 7.75 and then at each of the web
+   viewer's 156 values: the dividends whose quotients differ, all with
+   both quotients below 2^-52 (tiny dividends, whose tap weight cannot
+   differ), and expf's plateau (1 on [-2^-25, 0]).  Then the kernel alone
+   (``voxtracer_torch.app.denoisebench``) at 1920x1080 and 3840x2160, r
+   in {1, 2, 4, 8}, on random and on uniform planes: time, bound and
+   share (the cost curve).
 7. config 4 (``BASELINE.json``): monu9 1920x1080 on the dolly path,
    denoise r=2 — 3 warm-up frames, 3 bursts of 12 frames continuing
    along the path so that every timed frame moves.  Launch counts:
@@ -365,13 +375,18 @@ def phase_build():
     from voxtracer_torch.ops import denoise
 
     report = denoise_instances(_build.build_log())
-    say(1, "denoise instances (registers, spill bytes, static shared bytes): "
-           + ", ".join(f"r={r or 'run time'} {v}"
-                       for r, v in sorted(report.items())))
+    say(1, "denoise instances (registers, spill bytes, static shared bytes), "
+           "by radius and the range quotient's corrections: "
+           + ", ".join(f"r={r or 'run time'}/{steps} {v}"
+                       for (r, steps), v in sorted(report.items())))
     say(1, "denoise tile, dynamic shared bytes a block: " + ", ".join(
         f"r={r} {denoise.tile_plan(1080, 1920, r).shared_bytes}"
         for r in (1, 2, 4, 8)))
-    assert sorted(report) == list(range(denoise.STATIC_RADII + 1)), report
+    assert sorted(report) == [(r, steps)
+                              for r in range(denoise.STATIC_RADII + 1)
+                              for steps in (1, 2)], report
+    assert all(v[1] == 0 for v in report.values()), report
+    assert all(v[0] <= 80 for (r, _), v in report.items() if r >= 2), report
     stall = ptxas_entries(_build.build_log(), r"stall_kernelILi(\d)E")
     say(1, "stall kernel instances (registers, spill bytes, static shared "
            "bytes): " + ", ".join(f"{mode} {stall[str(i)]}" for i, mode in
@@ -381,8 +396,9 @@ def phase_build():
 
 def ptxas_entries(log, pattern):
     """ptxas's report of each entry function in the build log whose
-    mangled name matches ``pattern``, keyed by the match's first group:
-    registers, spill bytes (stores + loads) and static shared bytes."""
+    mangled name matches ``pattern``, keyed by the match's group (a
+    tuple where it has more than one): registers, spill bytes (stores +
+    loads) and static shared bytes."""
     lines = log.splitlines()
     res = {}
     for i, line in enumerate(lines):
@@ -393,7 +409,7 @@ def ptxas_entries(log, pattern):
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           text)
         smem = re.search(r"(\d+) bytes smem", text)
-        res[m.group(1)] = (
+        res[m.groups() if len(m.groups()) > 1 else m.group(1)] = (
             int(re.search(r"Used (\d+) registers", text).group(1)),
             int(spill.group(1)) + int(spill.group(2)),
             int(smem.group(1)) if smem else 0)
@@ -402,10 +418,10 @@ def ptxas_entries(log, pattern):
 
 def denoise_instances(log):
     """Each instance of the denoise kernel by radius (0: the radius at
-    run time): ``ptxas_entries`` of the by-value entry's instances,
-    denoise_kernel<R, false>."""
-    return {int(r): v for r, v in
-            ptxas_entries(log, r"denoise_kernelILi(\d+)ELb0E").items()}
+    run time) and the range quotient's corrections: ``ptxas_entries`` of
+    the by-value entry's instances, denoise_kernel<R, false, STEPS>."""
+    return {(int(r), int(steps)): v for (r, steps), v in ptxas_entries(
+        log, r"denoise_kernelILi(\d+)ELb0ELi(\d)E").items()}
 
 
 def phase_golden():
@@ -752,44 +768,51 @@ def compare_denoise(args):
 
 def phase_denoise(smi, dolly):
     """Kernel vs plain at 1080p on the dolly frame, r in {1, 2, 4, 8},
-    and on a ragged 333x187 crop of it at r in {1, ..., 8, 12, 27, 32}; then
-    the kernel alone through denoisebench at 1080p and 4K.  Returns the
-    max abs error."""
+    and on a ragged 333x187 crop of it at r in {1, ..., 8, 12, 27, 32},
+    at sigma_range 1.5, 0.3 and 2.75 (one, one and two corrections of the
+    range quotient); the range quotient against IEEE division; then the
+    kernel alone through denoisebench at 1080p and 4K.  Returns the max
+    abs error."""
     from voxtracer_torch.engine.params import DenoiseParams, pack_denoise_params
     from voxtracer_torch.ops import denoise
 
     cam, g, blended = dolly
     h, w = g["depth"].shape
     max_err = 0.0
-    for radius in (1, 2, 4, 8):
-        args = (blended, g["normal"], g["depth"], g["albedo"], g["node"],
-                pack_denoise_params(cam.rows(w, h), DenoiseParams()), radius)
-        k, p, n_far, n_diff = compare_denoise(args)
-        err = float((k - p).abs().max())
-        finite = bool(torch.isfinite(p).all())
-        k_ms = cuda_time(lambda: denoise.denoise_cuda(*args), 10)
-        p_ms = cuda_time(lambda: denoise.denoise_plain(*args), 1)
-        say(6, f"denoise r={radius} {w}x{h}: max abs err {err:g}, values "
-               f"beyond 1e-6 abs+rel {n_far}, values differing {n_diff}, "
-               f"plain finite {finite}; kernel {k_ms:.4f} ms, plain "
-               f"{p_ms:.2f} ms [{smi}]")
-        assert n_far == 0 and finite
-        max_err = max(max_err, err)
     cw, ch = 333, 187  # no multiple of the kernel's 32x32 tile
     crop = [t[..., :ch, :cw].contiguous()
             for t in (blended, g["normal"], g["depth"], g["albedo"], g["node"])]
-    crop_rows = []
-    # 27 and 32: above the largest radius whose haloed tile fits
-    for radius in (*range(1, 9), 12, 27, 32):
-        args = (*crop, pack_denoise_params(cam.rows(cw, ch), DenoiseParams()),
-                radius)
-        k, p, n_far, n_diff = compare_denoise(args)
-        err = float((k - p).abs().max())
-        crop_rows.append(f"r={radius} {err:g}/{n_far}/{n_diff}")
-        assert n_far == 0 and bool(torch.isfinite(p).all()), radius
-        max_err = max(max_err, err)
-    say(6, f"denoise {cw}x{ch} crop (max abs err / values beyond the bar / "
-           f"values differing): {', '.join(crop_rows)} [{smi}]")
+    for sigma in (1.5, 0.3, 2.75):
+        dp = DenoiseParams(sigma_range=sigma)
+        steps = denoise.range_reciprocal(sigma).steps
+        for radius in (1, 2, 4, 8):
+            args = (blended, g["normal"], g["depth"], g["albedo"], g["node"],
+                    pack_denoise_params(cam.rows(w, h), dp), radius)
+            k, p, n_far, n_diff = compare_denoise(args)
+            err = float((k - p).abs().max())
+            finite = bool(torch.isfinite(p).all())
+            k_ms = cuda_time(lambda: denoise.denoise_cuda(*args), 10)
+            p_ms = cuda_time(lambda: denoise.denoise_plain(*args), 1)
+            say(6, f"denoise r={radius} {w}x{h} sigma_range {sigma} "
+                   f"({steps} correction{'s' * (steps > 1)}): max abs err "
+                   f"{err:g}, values beyond 1e-6 abs+rel {n_far}, values "
+                   f"differing {n_diff}, plain finite {finite}; kernel "
+                   f"{k_ms:.4f} ms, plain {p_ms:.2f} ms [{smi}]")
+            assert n_diff == 0 and finite
+            max_err = max(max_err, err)
+        crop_rows = []
+        # 27 and 32: above the largest radius whose haloed tile fits
+        for radius in (*range(1, 9), 12, 27, 32):
+            args = (*crop, pack_denoise_params(cam.rows(cw, ch), dp), radius)
+            k, p, n_far, n_diff = compare_denoise(args)
+            err = float((k - p).abs().max())
+            crop_rows.append(f"r={radius} {err:g}/{n_far}/{n_diff}")
+            assert n_diff == 0 and bool(torch.isfinite(p).all()), radius
+            max_err = max(max_err, err)
+        say(6, f"denoise {cw}x{ch} crop, sigma_range {sigma} (max abs err / "
+               f"values beyond the bar / values differing): "
+               f"{', '.join(crop_rows)} [{smi}]")
+    phase_quotient(smi)
     # random planes, and uniform ones (every tap between equal elements,
     # as between sky pixels): the kernel's time should not differ
     for planes in ("random", "uniform"):
@@ -801,6 +824,38 @@ def phase_denoise(smi, dolly):
                    f"{r['size']} r={r['radius']} {r['ms_per_call']:.4f} "
                    f"{r['share']:.3f}" for r in rows))
     return max_err
+
+
+def phase_quotient(smi):
+    """The range quotient against IEEE division over every non-negative
+    float32 dividend: in detail at 1.5, 0.3, 2.75 and 7.75, then over the
+    web viewer's 156 values."""
+    from voxtracer_torch.ops import denoise
+
+    tiny = 2.0**-52
+    for sigma in (1.5, 0.3, 2.75, 7.75):
+        t0 = time.perf_counter()
+        got = denoise.quotient_check(sigma)
+        dt = time.perf_counter() - t0
+        steps = denoise.range_reciprocal(sigma).steps
+        say(6, f"range quotient, sigma_range {sigma} ({steps} correction"
+               f"{'s' * (steps > 1)}), all 2^31 non-negative dividends "
+               f"against IEEE division: {got['differ']} differ, all tiny "
+               f"(both quotients <= 2^-52: {got['top'] <= tiny}; the largest "
+               f"{got['top']:g}); expf != 1 on [-2^-25, 0]: "
+               f"{got['plateau']}; {dt:.2f} s [{smi}]")
+        assert got["top"] <= tiny and got["plateau"] == 0, got
+    web = [round(0.25 + 0.05 * k, 2) for k in range(156)]
+    rows = {s: denoise.quotient_check(s) for s in web}
+    two = sum(denoise.range_reciprocal(s).steps == 2 for s in web)
+    worst = max(r["top"] for r in rows.values())
+    say(6, f"range quotient over the web viewer's {len(web)} sigma_range "
+           f"values ({two} take two corrections): dividends differing "
+           f"{min(r['differ'] for r in rows.values())}-"
+           f"{max(r['differ'] for r in rows.values())}, the largest quotient "
+           f"among them {worst:g}; expf != 1 on [-2^-25, 0]: "
+           f"{max(r['plateau'] for r in rows.values())} [{smi}]")
+    assert worst <= tiny and all(r["plateau"] == 0 for r in rows.values())
 
 
 def n_differ(a, b):

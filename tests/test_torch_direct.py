@@ -50,8 +50,8 @@ class FakeLibrary:
     def vt_frame_slots(self):
         return len(direct.SLOTS)
 
-    def vt_denoise_resident_warps(self, instance, row, shared):
-        self.asked.append((instance, row, shared))
+    def vt_denoise_resident_warps(self, instance, row, steps, shared):
+        self.asked.append((instance, row, steps, shared))
         return resident(shared)
 
     def vt_frame_launch(self, plan, arena, old_color, old_blend, old_depth,
@@ -339,8 +339,8 @@ def test_resident_warps_are_asked_once_a_plan(fake):
         assert denoise_op.resident_warps(8, False, 73_728) == resident(73_728)
         assert denoise_op.resident_warps(8, True, 73_728) == resident(73_728)
         assert denoise_op.resident_warps(2, False, r2.shared_bytes) == 40
-    assert fake.asked == [(8, 0, 73_728), (8, 1, 73_728),
-                          (2, 0, r2.shared_bytes)]
+    assert fake.asked == [(8, 0, 1, 73_728), (8, 1, 1, 73_728),
+                          (2, 0, 1, r2.shared_bytes)]
     assert resident(73_728) == 24
 
     fake.asked.clear()
@@ -362,6 +362,30 @@ def test_resident_warps_are_asked_once_a_plan(fake):
     r.resize(40, 70)  # a new plan with r8's tile: nothing asked
     r.render(POSE_A)
     assert fake.asked == []
+
+
+@pytest.mark.parametrize("sigma, radius, steps, counted", [
+    (1.5, 8, 1, 1), (1.5, 2, 1, 1), (2.75, 2, 2, 0), (1.5, 0, 0, 0)])
+def test_plan_passes_the_range_reciprocal_and_counts_it(
+        fake, sigma, radius, steps, counted):
+    """The plan block holds ``range_reciprocal``'s float32 bits and steps,
+    and each frame adds its denoise launch to
+    ``denoise.reciprocal_launches`` where that takes one correction."""
+    r = Renderer(scene=load_scene("8x8x8"), height=12, width=16,
+                 device="cpu", denoise_radius=radius, lean=True,
+                 denoise_params=params.DenoiseParams(sigma_range=sigma))
+    before = counters()
+    for pose in POSES:
+        r.render(pose)
+    grown = {k: v - before[k] for k, v in counters().items()}
+    slot = dict(zip(direct.SLOTS, r._plan.block.tolist()))
+    assert slot["dn_steps"] == steps
+    if radius:
+        y = denoise_op.range_reciprocal(sigma).y
+        assert slot["dn_recip"] == int(np.float32(y).view(np.uint32))
+    assert r._plan.dn_reciprocal == counted
+    assert grown["launches.denoise"] == (len(POSES) if radius else 0)
+    assert grown["denoise.reciprocal_launches"] == len(POSES) * counted
 
 
 def test_frame_cu_reads_the_plan_and_stages_in_this_order():

@@ -227,8 +227,9 @@ def test_a_replay_adds_the_denoise_warps_its_capture_counted(monkeypatch):
     CUDA graphs (a capture runs the frame, a replay nothing) and a
     denoise stage that counts as its wrapper does: a capture leaves the
     counts as its eager frame left them, and each replay adds to
-    ``denoise.resident_warps`` what its frame's denoise launch added,
-    once for each ``launches.denoise`` it adds."""
+    ``denoise.resident_warps`` and ``denoise.reciprocal_launches`` what
+    its frame's denoise launch added, once for each ``launches.denoise``
+    it adds."""
     class Graph:
         def replay(self):
             pass
@@ -241,6 +242,7 @@ def test_a_replay_adds_the_denoise_warps_its_capture_counted(monkeypatch):
     def denoise_stage(*args):
         denoise.denoise_cuda.launches += 1
         COUNTS["denoise.resident_warps"] += 24
+        COUNTS["denoise.reciprocal_launches"] += 1
         return _denoise_stage(*args)
 
     seq, _ = _pair(_tiny_scene(), denoise_radius=2)
@@ -257,12 +259,14 @@ def test_a_replay_adds_the_denoise_warps_its_capture_counted(monkeypatch):
         grown = {k: v - before[k] for k, v in pipeline.counters().items()}
         assert grown["launches.denoise"] == 1  # the eager frame's
         assert grown["denoise.resident_warps"] == 24
+        assert grown["denoise.reciprocal_launches"] == 1
     runner.load_state(seq.state, True)
     before = pipeline.counters()
     runner.run(Renderer._segments(flags), graph=True)
     grown = {k: v - before[k] for k, v in pipeline.counters().items()}
     assert grown["graph.replays"] == grown["launches.denoise"] == len(cams)
     assert grown["denoise.resident_warps"] == 24 * len(cams)
+    assert grown["denoise.reciprocal_launches"] == len(cams)
 
 
 def test_sequence_after_realtime_frames_continues_accumulation():

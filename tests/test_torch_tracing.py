@@ -155,7 +155,8 @@ def test_counters_follow_the_wrappers_and_never_decrease(monkeypatch):
         "launches.resample", "launches.still_epilogue", "launches.encode",
         "graph.captures", "graph.replays", "kernel.builds", "host.waits",
         "frames.direct", "fetch.copies", "fetch.stream_copies",
-        "denoise.resident_warps", "scene.builds", "scene.device_builds", "scene.load_us",
+        "denoise.resident_warps", "denoise.reciprocal_launches",
+        "scene.builds", "scene.device_builds", "scene.load_us",
         "scene.tables_us", "scene.upload_us", "scene.table_bytes",
         "scene.per_node"}
     assert all(isinstance(v, int) for v in before.values())

@@ -6,9 +6,9 @@ The GUI's denoise slider reaches r = 8, a 17x17 stencil
 (``denoise.comp:64-78`` loops dy, dx over [-r, r]); this prices the whole
 slider.  The stencil's work is fixed by (radius, H, W): every in-frame
 tap runs for every pixel.  Its time need not be: a tap between equal
-elements (as between sky pixels) divides a zero, which takes the IEEE
-division's slow path unless the kernel keeps it out.  So the planes are
-random (``--planes random``, made with numpy from a seed as the JAX
+elements (as between sky pixels) divides a zero, which an IEEE division
+would send down its slow path (the kernel's range quotient has none).
+So the planes are random (``--planes random``, made with numpy from a seed as the JAX
 package's ``voxtracer.app.denoisebench`` makes them; almost no tap is
 between equal elements) or uniform (``--planes uniform``: every tap is).
 

@@ -12,13 +12,37 @@
 //
 // What bounds it.  Not bytes: 56 a pixel.  Per tap the function needs
 // colour, normal, depth-bias and material differences (~26 float
-// operations), an IEEE division by sigma_r^2 (2 * 1.5^2 = 4.5 by
-// default, not a power of two, so no reciprocal multiply), one expf and
-// four sums: about 60 instructions once -fmad=false forbids contracting
+// operations), the range quotient, one expf and four sums: 51
+// instructions a tap with its share of the shared loads (SASS at r = 2
+// and 8; 66 with an IEEE division) once -fmad=false forbids contracting
 // them.  From r = 2 on (25 taps a pixel) the issue rate bounds the
-// kernel, and the cost grows as (2r+1)^2; against a bound that counts
-// the tap's 39 float operations at the FMA rate its share cannot pass
-// ~0.3 (PERF.md).
+// kernel, and the cost grows as (2r+1)^2: at r = 8 on an H100 the SMs
+// issue 85-95% of their 4 warp instructions a clock, where shared loads
+// and the MUFU unit each need far less, and more resident warps would
+// add no issue slots.  Against a
+// bound that counts the tap's 39 float operations at the FMA rate its
+// share cannot pass ~0.3 (PERF.md).
+//
+// The range quotient.  factor_range = num / b, with b = 2 sigma_r^2
+// constant over a launch.  An IEEE division costs a tap a MUFU.RCP, about
+// five FFMAs, an FCHK and a branch, and its slow path takes a zero
+// dividend.  Instead the launcher passes y = RN(1 / b), and the tap takes
+// q0 = RN(num y) and STEPS corrections q = RN(q + RN(num - b q) y)
+// (`range_quotient`; explicit __fmaf_rn).  By Markstein's theorem a
+// correction rounds the quotient correctly once q is faithful, which q0
+// is where |b y - 1| <= 2^-25: ops/denoise.py `range_reciprocal` decides
+// that exactly, once per launch (28 of the viewer's 32 sigma_range
+// values, the default 1.5 among them), and a launch that fails it takes
+// a second correction (STEPS = 2), which makes q faithful first.  A zero
+// dividend gives +0; FLT_MAX stands in for an infinite q (one FMNMX a
+// step), so an infinite dividend gives inf and NaN gives NaN.  Where the
+// remainder falls below float32's normal range (num below about 2^-100)
+// q may miss IEEE's quotient by an ulp, but both lie below 2^-52 there,
+// and the tap's weight expf(-q - fd) cannot tell them apart: an fd of at
+// least 2^26 q rounds -q - fd to -fd, and a smaller one leaves -q - fd
+// in [-2^-25, 0], where expf is 1.  chip_smoke phase 6 checks both over
+// every non-negative float32 dividend on the card
+// (`vt_denoise_quotient_check`).
 //
 // Design, so that each tap costs only those instructions:
 // - A block of 32x8 threads owns a 32x32 tile of output pixels.  It
@@ -44,16 +68,14 @@
 //   test.  A border block marks the elements outside the frame and skips
 //   their taps, which adds exactly what the stack's valid=0 zero padding
 //   added: nothing.
-// - A tap between equal elements has a zero dividend, which the IEEE
-//   division sends down its slow path; the kernel divides a stand-in
-//   there, so sky-filled frames run as fast as any other.
 // - Above r = 26 the haloed tile no longer fits a block's 232,448 bytes
 //   of shared memory.  Those radii run `denoise_global_kernel`: one
 //   thread per pixel, every tap read from global memory (L1/L2 serve the
 //   overlap of neighbouring windows), log|depth| per tap, factor_dist
 //   computed per tap as float32(dx^2 + dy^2) / float32(sigma_d^2), the
-//   table's values, in the same tap order.  No shipped configuration uses
-//   such a radius; the instance exists so that none is refused.
+//   table's values, and the range term by IEEE division, in the same tap
+//   order.  No shipped configuration uses such a radius; the instance
+//   exists so that none is refused.
 // The launch geometry comes from the wrapper (ops/denoise.py
 // `tile_plan`); the launcher checks it against the constants below.
 //
@@ -66,12 +88,13 @@
 // only needs the window's first image row for its pixel rays (the
 // depth-bias term), by value.  One device: row0 0.
 //
-// Parameters.  The sigmas, the albedo factor and the factor_dist table
-// are constant over a camera path and always come by value.  The camera
-// rows come by value too, or, in the row-reading entries (ROW), from a
-// device pointer to the kernel's slice of a frame row: the launcher
-// copies them, device to device and in stream order, into `c_camera` in
-// constant memory just before the launch, so a captured CUDA graph (a
+// Parameters.  The sigmas, the albedo factor, the factor_dist table and
+// the range quotient's reciprocal are constant over a camera path and
+// always come by value.  The camera rows come by value too, or, in the
+// row-reading entries (ROW), from a device pointer to the kernel's slice
+// of a frame row: the launcher copies them, device to device and in
+// stream order, into `c_camera` in constant memory just before the
+// launch, so a captured CUDA graph (a
 // copy node, then the kernel) denoises by whichever row the device holds
 // there at replay.  ROW is a template flag of the one body; both
 // instances read the camera from a constant bank: staging it through
@@ -83,6 +106,9 @@
 // once would race on it.  The port renders on one stream.
 
 #include <cuda_runtime.h>
+
+#include <cmath>
+#include <float.h>
 #include <limits.h>
 #include <stdint.h>
 #include <string.h>
@@ -111,16 +137,31 @@ constexpr int tile_bytes(int r) {
     return PLANES * 4 * (TILE_X + 2 * r) * (TILE_Y + 2 * r);
 }
 
-// voxtracer_torch/engine/params.py pack_denoise_params layout, then the
-// factor_dist table, dy outer, dx inner
+// voxtracer_torch/engine/params.py pack_denoise_params layout, the range
+// quotient's reciprocal RN(1 / (2 sigma_r^2)), then the factor_dist table,
+// dy outer, dx inner
 template <int R>
 struct Params {
     float p[16];
+    float recip;
     float fdist[(2 * table_radius(R) + 1) * (2 * table_radius(R) + 1)];
 };
 
 __device__ __forceinline__ float max0(float a) {
     return (a != a) ? a : fmaxf(a, 0.f);
+}
+
+// a / b as IEEE division rounds it (but for the tiny dividends of the
+// header), from y = RN(1 / b): q0 = RN(a y), then STEPS corrections
+template <int STEPS>
+__device__ __forceinline__ float range_quotient(float a, float b, float y) {
+    float q = a * y;
+    #pragma unroll
+    for (int i = 0; i < STEPS; ++i) {
+        q = fminf(q, FLT_MAX);  // NaN and inf leave through the remainder
+        q = __fmaf_rn(__fmaf_rn(-b, q, a), y, q);
+    }
+    return q;
 }
 
 // 4 bytes global -> shared, asynchronously; zeros where !valid
@@ -146,11 +187,10 @@ struct Out {
     float norm, sum_r, sum_g, sum_b;
 };
 
-template <int R, bool BORDER>
+template <int R, bool BORDER, int STEPS>
 __device__ __forceinline__ void taps(const Params<R>& P, const float* tile,
                                      int n, int tw, int r, int first,
-                                     float sigma_r2, float zero_range,
-                                     Out (&o)[ROWS]) {
+                                     float sigma_r2, Out (&o)[ROWS]) {
     #pragma unroll (R > 0 ? ROWS + 2 * R : 1)
     for (int s = 0; s < ROWS + 2 * r; ++s) {
         const int row = first + s * tw;
@@ -178,15 +218,8 @@ __device__ __forceinline__ void taps(const Params<R>& P, const float* tile,
                 const float num = cdr * cdr + cdg * cdg + cdb * cdb +
                                   1e4f * (ndx * ndx + ndy * ndy + ndz * ndz) +
                                   1e4f * (bd * bd) + 1e4f * md;
-                // A zero dividend (equal colour, normal, depth and node,
-                // as between sky pixels) sends the IEEE division down its
-                // slow path, ~1.7x the tap's cost: divide a stand-in and
-                // take 0 / sigma_r2 instead.  The empty asm keeps the
-                // compiler from folding the stand-in away.
-                float den = num != 0.f ? num : 1.f;
-                asm("" : "+f"(den));
-                const float quot = den / sigma_r2;
-                const float factor_range = num != 0.f ? quot : zero_range;
+                const float factor_range =
+                    range_quotient<STEPS>(num, sigma_r2, P.recip);
                 const float factor_dist = P.fdist[dyi * (2 * r + 1) + dxi];
                 const float f = expf(-factor_range - factor_dist);
                 q.norm = q.norm + f;
@@ -202,7 +235,9 @@ __device__ __forceinline__ void taps(const Params<R>& P, const float* tile,
 // shared loads for 24 resident warps to hide their latency: that
 // instance unrolls its dx loop and keeps 64 registers for 32 warps a SM
 // (13% faster at 1080p than with the rolled loop; PERF.md, PR 5).
-template <int R, bool ROW>
+// STEPS: the range quotient's corrections, 1 where the launch's
+// reciprocal passes Markstein's test, else 2.
+template <int R, bool ROW, int STEPS>
 __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y, R == 1 ? 4 : 1)
 denoise_kernel(
     const Params<R> P, const float* __restrict__ colors,
@@ -269,7 +304,6 @@ denoise_kernel(
     __syncthreads();
 
     const float sigma_r2 = 2.0f * (p[13] * p[13]);
-    const float zero_range = 0.f / sigma_r2;
     Out o[ROWS];
     #pragma unroll
     for (int j = 0; j < ROWS; ++j) {
@@ -290,9 +324,9 @@ denoise_kernel(
 
     const int first = ty * tw + threadIdx.x;  // the window's top-left element
     if (x0 >= 0 && y0 >= 0 && x0 + tw <= width && y0 + th <= height)
-        taps<R, false>(P, tile, n, tw, r, first, sigma_r2, zero_range, o);
+        taps<R, false, STEPS>(P, tile, n, tw, r, first, sigma_r2, o);
     else
-        taps<R, true>(P, tile, n, tw, r, first, sigma_r2, zero_range, o);
+        taps<R, true, STEPS>(P, tile, n, tw, r, first, sigma_r2, o);
 
     // albedo modulation: out * (1 - f + f * albedo)
     if (x >= width) return;
@@ -397,26 +431,42 @@ struct Planes {
 
 // Above 48 KB a block's dynamic shared memory needs the attribute; set
 // once per instance, for its largest tile.
-template <int R, bool ROW>
+template <int R, bool ROW, int STEPS>
 cudaError_t allow_tile() {
     static const cudaError_t attr = cudaFuncSetAttribute(
-        denoise_kernel<R, ROW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        denoise_kernel<R, ROW, STEPS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         tile_bytes(table_radius(R)));
     return attr;
 }
 
-template <int R, bool ROW>
+// Whether `recip` is RN(1 / b) for b = 2 sigma_range^2, both normal, and
+// `steps` is 1 where Markstein's test passes, else 2: |b recip - 1| <=
+// 2^-25, exact in double (b recip has 48 bits)
+bool range_fits(float sigma_range, float recip, int steps) {
+    const float b = 2.0f * (sigma_range * sigma_range);
+    if (!std::isnormal(b) || !std::isnormal(recip) || recip != 1.0f / b)
+        return false;
+    const bool one =
+        std::fabs(static_cast<double>(b) * recip - 1.0) <= 0x1p-25;
+    return steps == (one ? 1 : 2);
+}
+
+template <int R, bool ROW, int STEPS>
 cudaError_t launch(const float* params_host, const float* fdist_host,
-                   const Planes& g, int height, int width, int row0,
-                   int radius, dim3 grid, int shared, cudaStream_t stream) {
-    const cudaError_t attr = allow_tile<R, ROW>();
+                   float recip, const Planes& g, int height, int width,
+                   int row0, int radius, dim3 grid, int shared,
+                   cudaStream_t stream) {
+    const cudaError_t attr = allow_tile<R, ROW, STEPS>();
     if (attr != cudaSuccess) return attr;
     Params<R> P;
     memcpy(P.p, params_host, sizeof(P.p));
+    P.recip = recip;
     memcpy(P.fdist, fdist_host, sizeof(float) * (2 * radius + 1) * (2 * radius + 1));
-    denoise_kernel<R, ROW><<<grid, dim3(BLOCK_X, BLOCK_Y), shared, stream>>>(
-        P, g.colors, g.normal, g.depth, g.albedo, g.node, height, width,
-        row0, radius, g.out);
+    denoise_kernel<R, ROW, STEPS>
+        <<<grid, dim3(BLOCK_X, BLOCK_Y), shared, stream>>>(
+            P, g.colors, g.normal, g.depth, g.albedo, g.node, height, width,
+            row0, radius, g.out);
     return cudaGetLastError();
 }
 
@@ -433,18 +483,23 @@ cudaError_t launch_global(const float* params_host, const Planes& g,
 }
 
 template <bool ROW>
-cudaError_t launch_instance(int instance, const float* params_host,
-                            const float* fdist_host, const Planes& g,
-                            int height, int width, int row0, int radius,
-                            dim3 grid, int shared, cudaStream_t stream) {
+cudaError_t launch_instance(int instance, int steps, float recip,
+                            const float* params_host, const float* fdist_host,
+                            const Planes& g, int height, int width, int row0,
+                            int radius, dim3 grid, int shared,
+                            cudaStream_t stream) {
     switch (instance) {
         case GLOBAL:
             return launch_global<ROW>(params_host, g, height, width, row0,
                                       radius, grid, stream);
 #define VT_DENOISE_CASE(R)                                                   \
     case R:                                                                  \
-        return launch<R, ROW>(params_host, fdist_host, g, height, width,     \
-                              row0, radius, grid, shared, stream);
+        if (steps == 1)                                                      \
+            return launch<R, ROW, 1>(params_host, fdist_host, recip, g,      \
+                                     height, width, row0, radius, grid,      \
+                                     shared, stream);                        \
+        return launch<R, ROW, 2>(params_host, fdist_host, recip, g, height,  \
+                                 width, row0, radius, grid, shared, stream);
         VT_DENOISE_TILED(VT_DENOISE_CASE)
 #undef VT_DENOISE_CASE
         default:
@@ -463,17 +518,22 @@ int resident_warps(Kernel kernel, int shared) {
     return blocks * (BLOCK_X * BLOCK_Y / 32);
 }
 
+template <int R, bool ROW, int STEPS>
+int tiled_resident_warps(int shared) {
+    const cudaError_t attr = allow_tile<R, ROW, STEPS>();
+    if (attr != cudaSuccess) return -static_cast<int>(attr);
+    return resident_warps(denoise_kernel<R, ROW, STEPS>, shared);
+}
+
 template <bool ROW>
-int instance_resident_warps(int instance, int shared) {
+int instance_resident_warps(int instance, int steps, int shared) {
     switch (instance) {
         case GLOBAL:
             return resident_warps(denoise_global_kernel<ROW>, shared);
 #define VT_DENOISE_CASE(R)                                                   \
-    case R: {                                                                \
-        const cudaError_t attr = allow_tile<R, ROW>();                       \
-        if (attr != cudaSuccess) return -static_cast<int>(attr);             \
-        return resident_warps(denoise_kernel<R, ROW>, shared);               \
-    }
+    case R:                                                                  \
+        return steps == 1 ? tiled_resident_warps<R, ROW, 1>(shared)          \
+                          : tiled_resident_warps<R, ROW, 2>(shared);
         VT_DENOISE_TILED(VT_DENOISE_CASE)
 #undef VT_DENOISE_CASE
         default:
@@ -481,18 +541,50 @@ int instance_resident_warps(int instance, int shared) {
     }
 }
 
+// vt_denoise_quotient_check's kernel: each thread walks its share of the
+// dividends by bit pattern, then a warp adds its counts to `out`
+template <int STEPS>
+__global__ void quotient_check_kernel(float b, float y, unsigned first,
+                                      unsigned count,
+                                      unsigned long long* out) {
+    unsigned differ = 0, top = 0, plateau = 0;
+    const unsigned stride = gridDim.x * blockDim.x;
+    for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < count;
+         i += stride) {
+        const float a = __uint_as_float(first + i);
+        const float q = range_quotient<STEPS>(a, b, y), ieee = a / b;
+        if (__float_as_uint(q) != __float_as_uint(ieee) &&
+            (q == q || ieee == ieee)) {
+            ++differ;
+            top = max(top, max(__float_as_uint(fabsf(q)),
+                               __float_as_uint(fabsf(ieee))));
+        }
+        plateau += a >= 0.f && a <= 0x1p-25f && expf(-a) != 1.f;
+    }
+    differ = __reduce_add_sync(~0u, differ);
+    top = __reduce_max_sync(~0u, top);
+    plateau = __reduce_add_sync(~0u, plateau);
+    if (threadIdx.x % 32 == 0) {
+        atomicAdd(out, differ);
+        atomicMax(out + 1, top);
+        atomicAdd(out + 2, plateau);
+    }
+}
+
 }  // namespace
 
-// The warps that a launch of `instance` (ROW: `row` 0 or 1) at `shared`
-// dynamic bytes, as ops/denoise.py `tile_plan` plans it, keeps resident on
-// one SM of the current device: cudaOccupancyMaxActiveBlocksPerMultiprocessor
-// after the attribute the launch sets.  Minus the CUDA error where the
-// query fails or the instance is not one of this build's.
-extern "C" int vt_denoise_resident_warps(int instance, int row, int shared) {
-    if ((row != 0 && row != 1) || shared < 0)
+// The warps that a launch of `instance` (ROW: `row` 0 or 1; `steps` the
+// range quotient's corrections, 1 or 2) at `shared` dynamic bytes, as
+// ops/denoise.py `tile_plan` plans it, keeps resident on one SM of the
+// current device: cudaOccupancyMaxActiveBlocksPerMultiprocessor after the
+// attribute the launch sets.  Minus the CUDA error where the query fails
+// or the instance is not one of this build's.
+extern "C" int vt_denoise_resident_warps(int instance, int row, int steps,
+                                         int shared) {
+    if ((row != 0 && row != 1) || (steps != 1 && steps != 2) || shared < 0)
         return -static_cast<int>(cudaErrorInvalidValue);
-    return row ? instance_resident_warps<true>(instance, shared)
-               : instance_resident_warps<false>(instance, shared);
+    return row ? instance_resident_warps<true>(instance, steps, shared)
+               : instance_resident_warps<false>(instance, steps, shared);
 }
 
 // The plan (instance, block, rows per thread, grid, shared bytes) is
@@ -501,13 +593,16 @@ extern "C" int vt_denoise_resident_warps(int instance, int row, int shared) {
 // (a host pointer) holds the whole vector; where `row` (a device pointer
 // to the kernel's slice of a frame row) is not null, the camera rows come
 // from there instead.  `fdist_host` is the tiled instances' table and is
-// not read by the GLOBAL one.
+// not read by the GLOBAL one.  `recip` and `steps` are ops/denoise.py
+// `range_reciprocal`'s for the vector's sigma_range (read by the tiled
+// instances); any other pair is refused with cudaErrorInvalidValue.
 extern "C" int vt_denoise_launch(
     const float* params_host, const float* fdist_host, const float* row,
     const float* colors, const float* normal, const float* depth,
     const float* albedo, const int* node, int height, int width, int row0,
     int radius, int instance, int block_x, int block_y, int rows_per_thread,
-    int grid_x, int grid_y, int shared, float* out, void* stream) {
+    int grid_x, int grid_y, int shared, float recip, int steps, float* out,
+    void* stream) {
     const bool tiled = radius <= MAX_RADIUS;
     const int tile_x = tiled ? TILE_X : BLOCK_X;
     const int tile_y = tiled ? TILE_Y : BLOCK_Y;
@@ -521,17 +616,45 @@ extern "C" int vt_denoise_launch(
         grid_y == (height + tile_y - 1) / tile_y &&
         shared == (tiled ? tile_bytes(radius) : 0);
     if (!fits) return static_cast<int>(cudaErrorInvalidConfiguration);
+    if (!range_fits(params_host[13], recip, steps))
+        return static_cast<int>(cudaErrorInvalidValue);
     const dim3 grid(grid_x, grid_y);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const Planes g = {colors, normal, depth, albedo, node, out};
     if (!row)
         return static_cast<int>(launch_instance<false>(
-            instance, params_host, fdist_host, g, height, width, row0, radius,
-            grid, shared, s));
+            instance, steps, recip, params_host, fdist_host, g, height,
+            width, row0, radius, grid, shared, s));
     const cudaError_t err = cudaMemcpyToSymbolAsync(
         c_camera, row, sizeof(c_camera), 0, cudaMemcpyDeviceToDevice, s);
     if (err != cudaSuccess) return static_cast<int>(err);
     return static_cast<int>(launch_instance<true>(
-        instance, params_host, fdist_host, g, height, width, row0, radius,
-        grid, shared, s));
+        instance, steps, recip, params_host, fdist_host, g, height, width,
+        row0, radius, grid, shared, s));
+}
+
+// The tiled kernel's range quotient (`range_quotient<steps>`, with the
+// launcher's `recip` and `steps` for `sigma_range`, refused as it refuses
+// them) against IEEE division by b = 2 sigma_range^2, over the `count`
+// dividends whose bit patterns run up from `first`.  Adds to the device's
+// `out`: [0] the dividends whose quotients differ (any NaN equal to any
+// NaN), [1] the largest magnitude's bit pattern of either quotient among
+// those (max), [2] the dividends in [0, 2^-25] with expf(-a) != 1.
+extern "C" int vt_denoise_quotient_check(float sigma_range, float recip,
+                                         int steps, unsigned first,
+                                         unsigned count,
+                                         unsigned long long* out,
+                                         void* stream) {
+    if (!range_fits(sigma_range, recip, steps) || !out)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const float b = 2.0f * (sigma_range * sigma_range);
+    const dim3 grid(132 * 8), block(256);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (steps == 1)
+        quotient_check_kernel<1><<<grid, block, 0, s>>>(b, recip, first,
+                                                        count, out);
+    else
+        quotient_check_kernel<2><<<grid, block, 0, s>>>(b, recip, first,
+                                                        count, out);
+    return static_cast<int>(cudaGetLastError());
 }

@@ -18,8 +18,9 @@
 // The plan is an int64 block (`Slot`; engine/direct.py SLOTS in the same
 // order): host pointers to the frame row and the geometry block, the
 // tables' and noise's device pointers, sizes, the row's slice offsets,
-// the denoise launch (ops/denoise.py tile_plan, its factor_dist table)
-// and each output's byte offset in the arena.  The caller packs the row
+// the denoise launch (ops/denoise.py tile_plan, its factor_dist table,
+// `range_reciprocal`'s reciprocal as float32 bits and its corrections) and
+// each output's byte offset in the arena.  The caller packs the row
 // before each call; every entry copies its slice into the launch, so the
 // row may change once the call has returned.  The kernels follow from
 // `reproject` and the plan's radius, as frame_stages picks them
@@ -47,7 +48,8 @@ extern "C" int vt_denoise_launch(
     const float* colors, const float* normal, const float* depth,
     const float* albedo, const int* node, int height, int width, int row0,
     int radius, int instance, int block_x, int block_y, int rows_per_thread,
-    int grid_x, int grid_y, int shared, float* out, void* stream);
+    int grid_x, int grid_y, int shared, float recip, int steps, float* out,
+    void* stream);
 extern "C" int vt_still_epilogue_launch(
     const float* params_host, const float* row, const float* color,
     const float* normal, const float* depth, float* old_color,
@@ -67,9 +69,9 @@ enum Slot {
     ROW, GEOMETRY, PACKED, META, BRICK, PALETTE, NOISE, N_SLICES, HEIGHT,
     WIDTH, RADIUS, DEVICE, ROW_TRACE, ROW_FRAME, ROW_TEMPORAL, ROW_DENOISE,
     ROW_EPILOGUE, FDIST, DN_INSTANCE, DN_BLOCK_X, DN_BLOCK_Y, DN_ROWS,
-    DN_GRID_X, DN_GRID_Y, DN_SHARED, AT_COLOR, AT_NORMAL, AT_ALBEDO,
-    AT_DEPTH, AT_NODE, AT_COUNTERS, AT_BLENDED, AT_NEXT_BLEND, AT_IMAGE,
-    AT_LINEAR, COUNTER_BYTES, N_SLOTS
+    DN_GRID_X, DN_GRID_Y, DN_SHARED, DN_RECIP, DN_STEPS, AT_COLOR, AT_NORMAL,
+    AT_ALBEDO, AT_DEPTH, AT_NODE, AT_COUNTERS, AT_BLENDED, AT_NEXT_BLEND,
+    AT_IMAGE, AT_LINEAR, COUNTER_BYTES, N_SLOTS
 };
 
 template <typename T>
@@ -143,6 +145,9 @@ int frame(const int64_t* plan, void* arena, float* old_color,
     if (rc) return rc;
     const float* src = blended;
     if (radius) {
+        const uint32_t recip_bits = static_cast<uint32_t>(plan[DN_RECIP]);
+        float recip;
+        memcpy(&recip, &recip_bits, sizeof(recip));
         rc = vt_denoise_launch(
             row + plan[ROW_DENOISE], ptr<const float*>(plan, FDIST), nullptr,
             blended, normal, depth, albedo, node, h, w, 0, radius,
@@ -152,7 +157,8 @@ int frame(const int64_t* plan, void* arena, float* old_color,
             static_cast<int>(plan[DN_ROWS]),
             static_cast<int>(plan[DN_GRID_X]),
             static_cast<int>(plan[DN_GRID_Y]),
-            static_cast<int>(plan[DN_SHARED]), linear, stream);
+            static_cast<int>(plan[DN_SHARED]), recip,
+            static_cast<int>(plan[DN_STEPS]), linear, stream);
         if (rc) return rc;
         src = linear;
     }

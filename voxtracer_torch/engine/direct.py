@@ -21,7 +21,9 @@ sequence and burst paths run the stages one by one.  A frame plan adds
 to the wrappers' ``launches`` the kernels it enqueued
 (:func:`frame_launches`), to ``COUNTS["denoise.resident_warps"]`` its
 denoise launch's resident warps (asked once, when the plan is built),
-and to ``COUNTS["frames.direct"]`` the frame.
+to ``COUNTS["denoise.reciprocal_launches"]`` that launch where its range
+quotient takes one correction, and to ``COUNTS["frames.direct"]`` the
+frame.
 """
 
 from __future__ import annotations
@@ -50,16 +52,16 @@ from .scene import TABLES
 
 # The plan block's int64 slots, in csrc/frame.cu `Slot` order: pointers
 # (host: the row, the geometry, the factor_dist table), sizes, the row's
-# slice offsets, the denoise launch, the outputs' byte offsets in the
-# arena and the counters' bytes.
+# slice offsets, the denoise launch (its range reciprocal as float32
+# bits), the outputs' byte offsets in the arena and the counters' bytes.
 SLOTS = (
     "row", "geometry", "packed", "meta", "brick", "palette", "noise",
     "n_slices", "height", "width", "radius", "device", "row_trace",
     "row_frame", "row_temporal", "row_denoise", "row_epilogue", "fdist",
     "dn_instance", "dn_block_x", "dn_block_y", "dn_rows", "dn_grid_x",
-    "dn_grid_y", "dn_shared", "at_color", "at_normal", "at_albedo",
-    "at_depth", "at_node", "at_counters", "at_blended", "at_next_blend",
-    "at_image", "at_linear", "counter_bytes",
+    "dn_grid_y", "dn_shared", "dn_recip", "dn_steps", "at_color",
+    "at_normal", "at_albedo", "at_depth", "at_node", "at_counters",
+    "at_blended", "at_next_blend", "at_image", "at_linear", "counter_bytes",
 )
 # each output's alignment in the arena (the kernels' vector paths need 16)
 ALIGN = 256
@@ -100,7 +102,7 @@ class FramePlan:
 
     def __init__(self, key, lib, tables, noise: torch.Tensor, height: int,
                  width: int, radius: int, sigma_distance: float,
-                 kernels: Dict[str, Callable]):
+                 sigma_range: float, kernels: Dict[str, Callable]):
         trace_op._check_inputs(tables, noise, height, width)
         if not noise.is_contiguous():
             raise ValueError("noise must be contiguous")
@@ -130,13 +132,15 @@ class FramePlan:
         self.fdist = (denoise_op.factor_dist_table(radius, sigma_distance)
                       if dn and dn.instance != denoise_op.GLOBAL_INSTANCE
                       else np.zeros(1, np.float32))
-        # what each frame's denoise launch adds to its counter (the native
-        # call passes no device row: the by-value entry)
-        self.dn_warps = 0
+        rr = denoise_op.range_reciprocal(sigma_range) if dn else None
+        # what each frame's denoise launch adds to its counters (the
+        # native call passes no device row: the by-value entry)
+        self.dn_warps = self.dn_reciprocal = 0
         if dn:
             with torch.cuda.device(self.index):
                 self.dn_warps = denoise_op.resident_warps(
-                    dn.instance, False, dn.shared_bytes)
+                    dn.instance, False, dn.shared_bytes, rr.steps)
+            self.dn_reciprocal = denoise_op.reciprocal_launch(dn, rr)
         self._layout(height, width)
         slots = {
             "row": self.row.ctypes.data,
@@ -159,6 +163,9 @@ class FramePlan:
             "dn_grid_x": dn.grid[0] if dn else 0,
             "dn_grid_y": dn.grid[1] if dn else 0,
             "dn_shared": dn.shared_bytes if dn else 0,
+            "dn_recip": (int(np.float32(rr.y).view(np.uint32)) if dn
+                         else 0),
+            "dn_steps": rr.steps if dn else 0,
             **{f"at_{name}": at for name, at in self.at.items()},
             "counter_bytes": 8 * trace_op.N_COUNTERS,
         }
@@ -242,6 +249,7 @@ class FramePlan:
         for kernel in self.counted[reproject]:
             kernel.launches += 1
         COUNTS["denoise.resident_warps"] += self.dn_warps
+        COUNTS["denoise.reciprocal_launches"] += self.dn_reciprocal
         COUNTS["frames.direct"] += 1
         return self._outputs(arena, base, cam, keep)
 

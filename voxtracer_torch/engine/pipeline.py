@@ -281,9 +281,10 @@ def frame_outputs(cam: np.ndarray, gbuf, blended, next_blend, linear, image,
     return state, outputs
 
 
-# the count that grows with the denoise's launches (``ops/denoise.py``):
-# a replayed graph adds what it counted while it was captured, as launches
-WARPS = "denoise.resident_warps"
+# the counts that grow with the denoise's launches (``ops/denoise.py``):
+# a replayed graph adds what they counted while it was captured, as
+# launches
+DENOISE_COUNTS = ("denoise.resident_warps", "denoise.reciprocal_launches")
 
 
 def counted_kernels() -> Dict[str, Callable]:
@@ -406,8 +407,8 @@ class SequenceRunner:
         attributes; it also overwrites state and cursor, so captures
         come before :meth:`load_state`), then the capture, which
         launches nothing: the launches the wrappers counted during it,
-        and the resident warps of its denoise launch, become the graph's
-        counts per replay."""
+        and what its denoise launch added to ``DENOISE_COUNTS``, become
+        the graph's counts per replay."""
         if reproject in self.graphs:
             return
         with span("vt.sequence.capture"):
@@ -420,18 +421,20 @@ class SequenceRunner:
                 self.pool = torch.cuda.graph_pool_handle()
             kernels = counted_kernels().values()
             before = [k.launches for k in kernels]
-            warps = COUNTS[WARPS]
+            counts = [COUNTS[name] for name in DENOISE_COUNTS]
             graph = torch.cuda.CUDAGraph()
             try:
                 with torch.cuda.graph(graph, pool=self.pool):
                     self.frame(reproject)
                 per_replay = [k.launches - n for k, n in zip(kernels, before)]
-                warps_per_replay = COUNTS[WARPS] - warps
+                counts_per_replay = [COUNTS[name] - n for name, n in
+                                     zip(DENOISE_COUNTS, counts)]
             finally:  # a capture that raised launched nothing either
                 for kernel, n in zip(kernels, before):
                     kernel.launches = n
-                COUNTS[WARPS] = warps
-            self.graphs[reproject] = (graph, per_replay, warps_per_replay)
+                for name, n in zip(DENOISE_COUNTS, counts):
+                    COUNTS[name] = n
+            self.graphs[reproject] = (graph, per_replay, counts_per_replay)
             COUNTS["graph.captures"] += 1
 
     def run(self, segments, graph: bool):
@@ -441,13 +444,14 @@ class SequenceRunner:
                 for _ in range(start, end):
                     self.frame(reproject)
                 continue
-            captured, per_replay, warps = self.graphs[reproject]
+            captured, per_replay, counts = self.graphs[reproject]
             for _ in range(start, end):
                 captured.replay()
             COUNTS["graph.replays"] += end - start
             for kernel, n in zip(counted_kernels().values(), per_replay):
                 kernel.launches += n * (end - start)
-            COUNTS[WARPS] += warps * (end - start)
+            for name, n in zip(DENOISE_COUNTS, counts):
+                COUNTS[name] += n * (end - start)
 
 
 @dataclasses.dataclass
@@ -620,7 +624,7 @@ class Renderer:
             self._plan = direct.FramePlan(
                 key, lib, self.tables, self.noise, self.height, self.width,
                 self.denoise_radius, self.denoise_params.sigma_distance,
-                counted_kernels())
+                self.denoise_params.sigma_range, counted_kernels())
         return self._plan
 
     def _sequence_runner(self) -> SequenceRunner:

@@ -170,13 +170,19 @@ def load() -> ctypes.CDLL:
     lib.vt_temporal_launch.restype = ctypes.c_int
     # vt_denoise_launch(params, fdist, row, colors, normal, depth, albedo,
     #   node, height, width, row0, radius, instance, block_x, block_y,
-    #   rows, grid_x, grid_y, shared, out, stream) -> cudaError_t
-    lib.vt_denoise_launch.argtypes = [p] * 8 + [i] * 11 + [p] * 2
+    #   rows, grid_x, grid_y, shared, recip, steps, out, stream)
+    #   -> cudaError_t
+    f, u = ctypes.c_float, ctypes.c_uint
+    lib.vt_denoise_launch.argtypes = [p] * 8 + [i] * 11 + [f, i] + [p] * 2
     lib.vt_denoise_launch.restype = ctypes.c_int
-    # vt_denoise_resident_warps(instance, row, shared) -> warps an SM, or
-    #   minus the cudaError
-    lib.vt_denoise_resident_warps.argtypes = [i] * 3
+    # vt_denoise_resident_warps(instance, row, steps, shared) -> warps an
+    #   SM, or minus the cudaError
+    lib.vt_denoise_resident_warps.argtypes = [i] * 4
     lib.vt_denoise_resident_warps.restype = ctypes.c_int
+    # vt_denoise_quotient_check(sigma_range, recip, steps, first, count,
+    #   out, stream) -> cudaError_t
+    lib.vt_denoise_quotient_check.argtypes = [f, f, i, u, u, p, p]
+    lib.vt_denoise_quotient_check.restype = ctypes.c_int
     # vt_resample_launch(hist, px_f, py_f, channels, height, width,
     #   sampled, ok, stream) -> cudaError_t
     lib.vt_resample_launch.argtypes = [p] * 3 + [i] * 3 + [p] * 3

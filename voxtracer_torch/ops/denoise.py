@@ -15,9 +15,12 @@ radius r >= 1 a (2r+1)^2 cross-bilateral stencil runs first:
 * :func:`denoise_cuda` — the hand-written kernel ``csrc/denoise.cu``,
   which replaces the Pallas kernel ``denoise_pallas._make_kernel``; its
   launch geometry is :func:`tile_plan`'s and its ``factor_dist`` values
-  :func:`factor_dist_table`'s; each launch adds the warps its plan
-  keeps resident on an SM (:func:`resident_warps`) to
-  ``COUNTS["denoise.resident_warps"]``.
+  :func:`factor_dist_table`'s, its range quotient's reciprocal and
+  corrections :func:`range_reciprocal`'s; each launch adds the warps
+  its plan keeps resident on an SM (:func:`resident_warps`) to
+  ``COUNTS["denoise.resident_warps"]``, and a tiled launch whose
+  quotient takes one correction adds 1 to
+  ``COUNTS["denoise.reciprocal_launches"]``.
 * :func:`denoise` — radius 0, or one of the two by the tensors' device.
 
 All read the (16,) vector of ``engine.params.pack_denoise_params``; the
@@ -26,6 +29,8 @@ kernel's wrapper and the dispatcher also take a ``DeviceRow``.
 
 from __future__ import annotations
 
+import functools
+from fractions import Fraction
 from typing import Dict, NamedTuple
 
 import numpy as np
@@ -67,6 +72,39 @@ def _sigma2(sigma: float) -> float:
     """2 * sigma**2 rounded in float32, as the reference computes it."""
     s = np.float32(sigma)
     return float(np.float32(2.0) * (s * s))
+
+
+class RangeReciprocal(NamedTuple):
+    """The tiled kernel's range quotient ``num / b`` for one launch."""
+
+    b: float  # 2 * sigma_range**2 in float32, as the kernel forms it
+    y: float  # RN(1 / b) in float32
+    steps: int  # corrections after q0 = RN(num * y): 1 or 2
+
+
+# Markstein's test: where |b * y - 1| is at most this, q0 = RN(num * y) is
+# faithful and one correction rounds the quotient correctly
+MARKSTEIN_BOUND = Fraction(1, 2**25)
+
+
+@functools.lru_cache(maxsize=256)
+def range_reciprocal(sigma_range: float) -> RangeReciprocal:
+    """The reciprocal of ``b = 2 * sigma_range**2`` (float32) that the
+    tiled kernel divides each tap's range term by (``csrc/denoise.cu``
+    ``range_quotient``), and its corrections: 1 where ``|b * y - 1| <=
+    2^-25`` in exact rational arithmetic, else 2.  Raises where ``b`` or
+    ``y`` is not a normal float32 (sigma_range outside about
+    [8e-20, 5.8e18]).  Remembered: an eager launch asks it each call."""
+    with np.errstate(divide="ignore", over="ignore", invalid="ignore"):
+        b = np.float32(_sigma2(sigma_range))
+        y = np.float32(1.0) / b
+    tiny = np.finfo(np.float32).tiny
+    if not all(np.isfinite(v) and abs(v) >= tiny for v in (b, y)):
+        raise ValueError(
+            f"sigma_range {sigma_range} gives 2 sigma^2 = {b} and a "
+            f"reciprocal {y}: the kernel needs both normal float32")
+    one = abs(Fraction(float(b)) * Fraction(float(y)) - 1) <= MARKSTEIN_BOUND
+    return RangeReciprocal(float(b), float(y), 1 if one else 2)
 
 
 def _modulate(out, albedo, factor: float):
@@ -205,30 +243,39 @@ def tile_plan(height: int, width: int, radius: int) -> TilePlan:
     )
 
 
-# (library, instance, row, shared bytes) -> warps: asked once a plan
+# (library, instance, row, steps, shared bytes) -> warps: asked once a plan
 _RESIDENT: Dict[tuple, int] = {}
 
 
-def resident_warps(instance: int, row: bool, shared_bytes: int) -> int:
+def resident_warps(instance: int, row: bool, shared_bytes: int,
+                   steps: int = 1) -> int:
     """The warps that a launch of :func:`tile_plan`'s ``instance`` (its
-    row-reading entry where ``row``) at ``shared_bytes`` of dynamic shared
-    memory keeps resident on one SM of the current device
+    row-reading entry where ``row``; its quotient's ``steps``, as
+    :func:`range_reciprocal` gives them) at ``shared_bytes`` of dynamic
+    shared memory keeps resident on one SM of the current device
     (``vt_denoise_resident_warps``: the occupancy query after the
     attribute the launch sets).  Asked of the loaded library once for
-    each (instance, row, shared bytes), then remembered.  Raises where
-    the query fails."""
+    each (instance, row, steps, shared bytes), then remembered.  Raises
+    where the query fails."""
     from . import _build
 
     lib = _build.load()
-    key = (lib, int(instance), bool(row), int(shared_bytes))
+    key = (lib, int(instance), bool(row), int(steps), int(shared_bytes))
     warps = _RESIDENT.get(key)
     if warps is None:
-        warps = lib.vt_denoise_resident_warps(key[1], int(key[2]), key[3])
+        warps = lib.vt_denoise_resident_warps(key[1], int(key[2]), key[3],
+                                              key[4])
         if warps < 0:
             raise RuntimeError(
                 f"denoise occupancy query failed: cudaError {-warps}")
         _RESIDENT[key] = warps
     return warps
+
+
+def reciprocal_launch(plan: TilePlan, rr: RangeReciprocal) -> int:
+    """1 where a launch of ``plan`` divides by ``rr`` with one correction
+    (a tiled instance; the GLOBAL one keeps IEEE division), else 0."""
+    return int(plan.instance != GLOBAL_INSTANCE and rr.steps == 1)
 
 
 def factor_dist_table(radius: int, sigma_distance: float) -> np.ndarray:
@@ -252,12 +299,12 @@ def denoise_cuda(
     """The same stencil and modulate from the hand-written CUDA kernel
     (csrc/denoise.cu), ``row0`` by value.  ``params`` is the host's
     vector, passed by value, or a
-    :class:`~voxtracer_torch.engine.params.DeviceRow`: the
-    sigmas, the albedo factor and the ``factor_dist`` table, constant
-    over a camera path, then come by value from its host row, and the
-    kernel's row-reading entry takes the camera rows from the row on the
-    device.  Launches on the current stream and does not
-    synchronise.  Raises if an input is not what the kernel takes or the
+    :class:`~voxtracer_torch.engine.params.DeviceRow`: the sigmas, the
+    albedo factor, the ``factor_dist`` table and the range quotient's
+    reciprocal, constant over a camera path, then come by value from its
+    host row, and the kernel's row-reading entry takes the camera rows
+    from the row on the device.  Launches on the current stream and does
+    not synchronise.  Raises if an input is not what the kernel takes or the
     launch is refused."""
     _check_inputs(colors, normal, depth, albedo, node, radius)
     if row0 < 0:
@@ -283,10 +330,11 @@ def denoise_cuda(
     # the tiled instances' table; GLOBAL_INSTANCE computes it per tap
     fdist = (factor_dist_table(int(radius), params[12])
              if plan.instance != GLOBAL_INSTANCE else np.zeros(1, np.float32))
+    rr = range_reciprocal(params[13])
     out = torch.empty_like(colors)
     with torch.cuda.device(depth.device):
         warps = resident_warps(plan.instance, row is not None,
-                               plan.shared_bytes)
+                               plan.shared_bytes, rr.steps)
         stream = torch.cuda.current_stream(depth.device).cuda_stream
         err = launch(
             params.ctypes.data,
@@ -302,6 +350,8 @@ def denoise_cuda(
             plan.rows_per_thread,
             *plan.grid,
             plan.shared_bytes,
+            rr.y,
+            rr.steps,
             out.data_ptr(),
             stream,
         )
@@ -309,10 +359,36 @@ def denoise_cuda(
         raise RuntimeError(f"denoise kernel launch failed: cudaError {err}")
     denoise_cuda.launches += 1
     COUNTS["denoise.resident_warps"] += warps
+    COUNTS["denoise.reciprocal_launches"] += reciprocal_launch(plan, rr)
     return out
 
 
 denoise_cuda.launches = 0
+
+
+def quotient_check(sigma_range: float, first: int = 0,
+                   count: int = 1 << 31) -> Dict:
+    """The tiled kernel's range quotient against IEEE division on the
+    current CUDA device (``vt_denoise_quotient_check``), over the
+    ``count`` float32 dividends whose bit patterns run up from ``first``
+    (by default every non-negative one, inf and the NaNs among them), by
+    :func:`range_reciprocal`'s reciprocal and steps: ``differ``, the
+    dividends whose quotients differ (any NaN equal to any NaN); ``top``,
+    the largest quotient of either among those (0.0 where none);
+    ``plateau``, the dividends in [0, 2^-25] whose ``expf(-a)`` is not 1.
+    Synchronises."""
+    from . import _build
+
+    rr = range_reciprocal(sigma_range)
+    out = torch.zeros(3, dtype=torch.int64, device="cuda")
+    err = _build.load().vt_denoise_quotient_check(
+        float(np.float32(sigma_range)), rr.y, rr.steps, first, count,
+        out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"quotient check failed: cudaError {err}")
+    differ, top, plateau = out.tolist()
+    return {"differ": differ, "plateau": plateau,
+            "top": float(np.uint32(top).view(np.float32))}
 
 
 def denoise(

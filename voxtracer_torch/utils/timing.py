@@ -53,6 +53,9 @@ COUNTS: Dict[str, int] = {
     # a denoise launch counted in ``launches.denoise``: the warps its plan
     # keeps resident on one SM (``ops/denoise.py`` ``resident_warps``)
     "denoise.resident_warps": 0,
+    # one counted in ``launches.denoise`` whose range quotient takes one
+    # correction (``ops/denoise.py`` ``reciprocal_launch``)
+    "denoise.reciprocal_launches": 0,
     # ``engine/scene.py``: the scene build (set-up only)
     "scene.builds": 0,  # a ``SceneTables``
     "scene.device_builds": 0,  # one whose tables were built on a CUDA device
